@@ -6,7 +6,7 @@
 Phases, any failure exits non-zero:
 
 1. the card, as nvidia-smi and torch report it;
-2. build every CUDA kernel of the serving path from csrc/ (nvcc, sm_90a);
+2. build every CUDA kernel from csrc/ (nvcc, sm_90a);
 3. each kernel against its plain PyTorch version on the card, on seeded
    clouds, with exact integer equality, and its time (CUDA events) at the
    shapes one request of 32 clusters of 2048 points gives it;
@@ -17,7 +17,18 @@ Phases, any failure exits non-zero:
    CPU and the replay request against the recorded JAX outputs
    (pred_class equal, floats within rtol = atol = 1e-3: TF32 is off, so
    only summation order and last-bit FPS ties differ). Then latency per
-   request at 4 and 32 clusters and peak device memory.
+   request at 4 and 32 clusters and peak device memory;
+5. the fused set-abstraction kernel against its plain version at the
+   shapes of the four SA calls of the two executors (B = 8) and with
+   empty balls: selected neighbours exact, features within FUSED_TOL; its
+   time at the path shapes (B = 32, N = 1024);
+6. the fused eval executors (models/fast_infer.py): the SSG one on the
+   committed r3 classifier, the MSG one on seeded weights with nontrivial
+   BatchNorm. The launch counts must show 2 fused-SA and 2 FPS launches and
+   no ball query per forward; outputs are held against the unfused models
+   on the card and the executors on the CPU (pred equal, log_probs within
+   TOL), the replay classes against the recorded JAX ones. Then latency
+   and peak device memory of executor and unfused model at B = 32 and 256.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -25,6 +36,7 @@ The line before the last is the kernels JSON; the last line is
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import statistics
@@ -44,6 +56,9 @@ CHECKPOINTS = {
 }
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_clusters.npz")
 TOL = 1e-3
+# the fused kernel against its plain version: float32 sums in another order
+# (fused multiply-adds in channel order against a blocked product)
+FUSED_TOL = 1e-4
 # published H100 SXM peaks (NVIDIA data sheet): HBM rate, f32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -97,23 +112,52 @@ def fps_bound_ms(B, N, C, S):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def ball_query_bound_ms(points, centroids, radii, ks):
-    """Bytes: points, centroids and indices once. Operations: (3P+3) per
-    point the scan of this data needs, up to the K-th in-ball point."""
+def scanned_points(points, centroids, radii, ks) -> int:
+    """Points a ball scan in index order visits on this data: up to the
+    K-th in-ball point, or all N, per centroid and scale."""
     import torch
 
     from pointnet_like_pose_estimation_tpu_torch.ops import square_distance
 
-    B, N, P = points.shape
-    S = centroids.shape[1]
+    N = points.shape[1]
     d2 = square_distance(centroids, points)
     scanned = 0
     for r, k in zip(radii, ks):
         r2 = float(np.float32(r * r))
         count = torch.cumsum((d2 <= r2).int(), dim=-1)
         scanned += int(torch.clamp((count < k).sum(-1) + 1, max=N).sum())
+    return scanned
+
+
+def ball_query_bound_ms(points, centroids, radii, ks):
+    """Bytes: points, centroids and indices once. Operations: (3P+3) per
+    point the scan of this data needs, up to the K-th in-ball point."""
+    B, N, P = points.shape
+    S = centroids.shape[1]
     nbytes = 4 * (B * N * P + B * S * P + B * S * sum(ks))
-    ops = scanned * (3 * P + 3)
+    ops = scanned_points(points, centroids, radii, ks) * (3 * P + 3)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def fused_sa_bound_ms(ptsfeat, centroids, radii, ks, layer_widths):
+    """Bytes: ptsfeat, centroids, weights and output once. Operations: the
+    ball scan this data needs (12 per point visited), then per neighbour
+    row and layer 2*Cin*Cout for the product and 2*Cout for bias and relu,
+    and one max per row and output channel."""
+    B, N, P = ptsfeat.shape
+    S = centroids.shape[1]
+    row_ops, n_weights = 0, 0
+    for K, widths in zip(ks, layer_widths):
+        cin, per_row = P, 0
+        for cout in widths:
+            per_row += 2 * cin * cout + 2 * cout
+            n_weights += cin * cout + cout
+            cin = cout
+        row_ops += K * (per_row + widths[-1])
+    c_total = sum(ws[-1] for ws in layer_widths)
+    nbytes = 4 * (B * N * P + B * S * 3 + n_weights + B * S * c_total)
+    ops = B * S * row_ops + 12 * scanned_points(ptsfeat[..., :3], centroids, radii, ks)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -194,46 +238,237 @@ def kernel_phase(device) -> list[dict]:
     entries.append(("ball_query", "pointnet_like_pose_estimation_tpu_torch/kernels/csrc/ball_group.cu",
                     "pointnet_like_pose_estimation_tpu/kernels/ball_group.py:44", shapes))
 
-    kernels = []
-    for name, source, replaces, shapes in entries:
-        for s in shapes:
-            log(f"  time {name} {s['call']} {s['shape']}: kernel {s['ms']:.4f} ms, "
-                f"plain {s['plain_ms']:.4f} ms, bound {s['bound_ms']:.6f} ms ({s['bound_by']})")
-        kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": 0, "max_abs_err": err[name],
-            "ms": sum(s["ms"] for s in shapes),
-            "plain_ms": sum(s["plain_ms"] for s in shapes),
-            "bound_ms": sum(s["bound_ms"] for s in shapes),
-            "bound_by": max(shapes, key=lambda s: s["bound_ms"])["bound_by"],
-            "library_ms": None,
-            "per_request_of": "32 clusters x 2048 points",
-            "shapes": shapes,
-        })
-    return kernels
+    return [kernel_entry(name, source, replaces, err[name], shapes, "32 clusters x 2048 points")
+            for name, source, replaces, shapes in entries]
 
 
-def serving_phase(kernels: list[dict]) -> dict:
+def kernel_entry(name, source, replaces, err, shapes, per_request_of) -> dict:
+    """One kernel of the kernels JSON line: its times and bounds summed over
+    the calls of one request; ``launches`` is filled in by the path runs."""
+    for s in shapes:
+        log(f"  time {name} {s['call']} {s['shape']}: kernel {s['ms']:.4f} ms, "
+            f"plain {s['plain_ms']:.4f} ms, bound {s['bound_ms']:.6f} ms ({s['bound_by']})")
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": 0, "max_abs_err": err,
+        "ms": sum(s["ms"] for s in shapes),
+        "plain_ms": sum(s["plain_ms"] for s in shapes),
+        "bound_ms": sum(s["bound_ms"] for s in shapes),
+        "bound_by": max(shapes, key=lambda s: s["bound_ms"])["bound_by"],
+        "library_ms": None,
+        "per_request_of": per_request_of,
+        "shapes": shapes,
+    }
+
+
+def blobs(rng, K, M):
+    """K seeded clusters of M points, each a blob of 0.05 around its centre."""
+    return (rng.uniform(-0.5, 0.5, (K, 1, 3))
+            + 0.05 * rng.standard_normal((K, M, 3))).astype(np.float32)
+
+
+def seeded_msg():
+    """pointnet2_cls_msg with weights drawn from a torch.Generator and
+    nontrivial BatchNorm statistics and affine parameters, so that folding
+    BN into the weights is exercised."""
+    import math
+
+    import torch
+    from torch import nn
+
+    from pointnet_like_pose_estimation_tpu_torch.models import build_model
+
+    gen = torch.Generator().manual_seed(5)
+    model = build_model("pointnet2_cls_msg")
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.Linear):
+                m.weight.normal_(0.0, 1.0 / math.sqrt(m.in_features), generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+            elif isinstance(m, nn.BatchNorm1d):
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.normal_(0.0, 0.2, generator=gen)
+                m.running_mean.normal_(0.0, 0.3, generator=gen)
+                m.running_var.uniform_(0.5, 2.0, generator=gen)
+    return model.eval()
+
+
+def fused_sa_phase(device, executors, xyz) -> dict:
+    """The fused-SA kernel against its plain version on seeded clouds and
+    seeded folded weights at the shapes of the four SA calls (B = 8) and
+    with empty balls: selected indices exact, features within FUSED_TOL.
+    Then its time at the path shapes: ``xyz`` [32, 1024, 3] through each
+    executor's own folded SA1 and SA2."""
+    import torch
+
+    from pointnet_like_pose_estimation_tpu_torch.kernels.ball_group import ball_query_reference
+    from pointnet_like_pose_estimation_tpu_torch.kernels.fps import fps
+    from pointnet_like_pose_estimation_tpu_torch.kernels.fused_sa import (
+        fused_sa_infer,
+        fused_sa_reference,
+    )
+    from pointnet_like_pose_estimation_tpu_torch.models.fast_infer import fold_sa_level
+    from pointnet_like_pose_estimation_tpu_torch.ops import index_points
+
+    rng = np.random.default_rng(4)
+    levels = {f"{ex} SA{i + 1}": fold_sa_level(getattr(model, f"sa{i + 1}"))
+              for ex, (_, _, model) in executors.items() for i in range(2)}
+    err = 0.0
+    cases = [(name, N, lv, 0.0) for name, N, lv in [
+        ("SSG SA1", 1024, levels["SSG SA1"]), ("SSG SA2", 512, levels["SSG SA2"]),
+        ("MSG SA1", 1024, levels["MSG SA1"]), ("MSG SA2", 512, levels["MSG SA2"])]]
+    cases.append(("empty balls", 1024, levels["MSG SA1"], 4.0))
+    for what, N, (S, radii, ks, widths, model_w), offset in cases:
+        B, P = 8, model_w[0].shape[0]
+        xyz8 = torch.from_numpy(unit_clouds(rng, B, N)).to(device)
+        feats = np.abs(rng.standard_normal((B, N, P - 3))).astype(np.float32)
+        pts = torch.cat([xyz8, torch.from_numpy(feats).to(device)], dim=-1).contiguous()
+        cent = (index_points(xyz8, fps(xyz8, S)) + offset).contiguous()
+        weights = []
+        for w in model_w:
+            scale = 1.0 / np.sqrt(w.shape[0]) if w.dim() == 2 else 0.1
+            weights.append(torch.from_numpy(
+                (scale * rng.standard_normal(tuple(w.shape))).astype(np.float32)).to(device))
+        idx = torch.empty((B, S, sum(ks)), dtype=torch.int32, device=device)
+        got = fused_sa_infer(pts, cent, weights, radii, ks, widths, idx_out=idx)
+        torch.cuda.synchronize()
+        check(torch.equal(idx, ball_query_reference(pts[..., :3], cent, radii, ks)),
+              f"fused_sa {what}: selection differs from ball_query_reference")
+        if offset:
+            check(bool((idx == N - 1).all()), "fused_sa empty balls: selection is not N-1")
+        want = fused_sa_reference(pts, cent, weights, radii, ks, widths)
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()), f"fused_sa {what}: shape")
+        diff = float((got - want).abs().max())
+        err = max(err, diff)
+        check(torch.allclose(got, want, rtol=FUSED_TOL, atol=FUSED_TOL),
+              f"fused_sa {what}: differs from its plain version (max {diff})")
+        log(f"  fused_sa {what} B={B} N={N} P={P} S={S} ks={ks}: selection exact, "
+            f"features max abs diff {diff:.3g}")
+
+    shapes = []
+    for ex in executors:
+        p = ptsfeat = xyz
+        for i in range(2):
+            S, radii, ks, widths, weights = levels[f"{ex} SA{i + 1}"]
+            weights = [w.to(device) for w in weights]
+            cent = index_points(p, fps(p, S)).contiguous()
+            args = (ptsfeat, cent, weights, radii, ks, widths)
+            bound, by = fused_sa_bound_ms(ptsfeat, cent, radii, ks, widths)
+            shapes.append({"call": f"{ex} SA{i + 1}", "shape": [*ptsfeat.shape, S, *ks],
+                           "ms": cuda_ms(lambda: fused_sa_infer(*args), 10),
+                           "plain_ms": cuda_ms(lambda: fused_sa_reference(*args), 3),
+                           "bound_ms": bound, "bound_by": by})
+            f = fused_sa_infer(*args)
+            p, ptsfeat = cent, torch.cat([cent, f], dim=-1)
+    return kernel_entry("fused_sa", "pointnet_like_pose_estimation_tpu_torch/kernels/csrc/fused_sa.cu",
+                        "pointnet_like_pose_estimation_tpu/kernels/fused_sa.py:43", err, shapes,
+                        "one SSG and one MSG forward of 32 clouds x 1024 points")
+
+
+def timed(fn, reps: int) -> dict:
+    """Host clock around ``fn`` ending in a synchronize; peak device memory."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return {"median_ms": statistics.median(times), "min_ms": min(times),
+            "max_ms": max(times), "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20}
+
+
+def fast_infer_phase(pipe, executors, kernels: list[dict]) -> dict:
+    """The fused executors on their main path: the SSG one on the trained
+    r3 checkpoint (replay clusters and a seeded batch of 32, prepared as the
+    pipeline prepares them), the MSG one on seeded weights (a seeded batch
+    of 32). Each forward must add 2 fused_sa, 2 fps and 0 ball-query
+    launches. Every output is held against the unfused model on the card
+    and the same executor on the CPU (pred equal, log_probs within TOL), and
+    the replay classes against the recorded JAX pred_class. Then latency
+    and peak memory of executor against unfused model, B = 32 and 256."""
     import torch
 
     from pointnet_like_pose_estimation_tpu_torch.kernels.ball_group import ball_query_multi
     from pointnet_like_pose_estimation_tpu_torch.kernels.fps import fps
-    from pointnet_like_pose_estimation_tpu_torch.pipeline import GraspPipeline, PipelineConfig
+    from pointnet_like_pose_estimation_tpu_torch.kernels.fused_sa import fused_sa_infer
+    from pointnet_like_pose_estimation_tpu_torch.ops import normalize_cloud
 
-    paths = {k: os.path.join(ROOT, v) for k, v in CHECKPOINTS.items()}
-    pipe = GraspPipeline.from_checkpoints(PipelineConfig(), paths)        # default: cuda
-    check(pipe.device.type == "cuda", "the pipeline did not default to the card")
-    cpu = GraspPipeline.from_checkpoints(PipelineConfig(), paths, device="cpu")
+    fix = np.load(FIXTURE)
+    rng = np.random.default_rng(2)
+
+    def prepare(clusters):
+        return normalize_cloud(pipe._resample(clusters))
+
+    requests = [("SSG", "replay", prepare(fix["clusters"])),
+                ("SSG", "seeded B=32", prepare(blobs(rng, 32, 2048))),
+                ("MSG", "seeded B=32", prepare(blobs(rng, 32, 2048)))]
+
+    def counts():
+        return fused_sa_infer.launches, fps.launches, ball_query_multi.launches
+
+    fused_sa_infer.launches = fps.launches = ball_query_multi.launches = 0
+    outputs = []
+    for ex, name, x in requests:
+        before = counts()
+        log_probs, pred = executors[ex][0](x)
+        torch.cuda.synchronize()
+        got = tuple(a - b for a, b in zip(counts(), before))
+        check(got == (2, 2, 0), f"{ex} {name}: launches fused_sa/fps/ball_query {got}, want (2, 2, 0)")
+        outputs.append((ex, name, x, log_probs, pred))
+    launches = dict(zip(("fused_sa", "fps", "ball_query"), counts()))
+    check(launches["fused_sa"] > 0 and launches["fps"] > 0, "fast-infer path launched no kernel")
+    for k in kernels:
+        k.setdefault("launches_by_path", {"serving": k["launches"]})["fast_infer"] = launches[k["name"]]
+        if k["name"] == "fused_sa":
+            k["launches"] = launches["fused_sa"]
+
+    for ex, name, x, log_probs, pred in outputs:
+        _, cpu_fwd, model = executors[ex]
+        check(log_probs.shape == (x.shape[0], 7) and bool(torch.isfinite(log_probs).all()),
+              f"{ex} {name}: log_probs shape or non-finite")
+        with torch.inference_mode():
+            m_lp, _, m_pred = model(x)
+        c_lp, c_pred = cpu_fwd(x.cpu())
+        for what, lp, pr in (("unfused model on the card", m_lp, m_pred),
+                             ("executor on the CPU", c_lp, c_pred)):
+            check(torch.equal(pred.cpu(), pr.cpu()), f"{ex} {name}: pred differs from the {what}")
+            diff = float((log_probs.cpu() - lp.cpu()).abs().max())
+            check(torch.allclose(log_probs.cpu(), lp.cpu(), rtol=TOL, atol=TOL),
+                  f"{ex} {name}: log_probs differ from the {what} (max {diff})")
+            log(f"  {ex} {name}: matches the {what} (log_probs max abs diff {diff:.3g})")
+        if name == "replay":
+            check(np.array_equal(pred.cpu().numpy(), fix["pred_class"]),
+                  f"SSG replay: pred {pred.tolist()} vs recorded JAX {fix['pred_class'].tolist()}")
+            log(f"  SSG replay: classes {pred.tolist()} equal the recorded JAX pred_class")
+
+    latency = {}
+    for B in (32, 256):
+        x = normalize_cloud(torch.from_numpy(blobs(rng, B, 1024)).to(pipe.device))
+        for ex, (fwd, _, model) in executors.items():
+            for what, fn in (("fused", lambda: fwd(x)), ("unfused", lambda: model(x))):
+                with torch.inference_mode():
+                    latency[f"{ex} B={B} {what}"] = timed(fn, 10)
+                log(f"  latency {ex} B={B} {what}: {json.dumps(latency[f'{ex} B={B} {what}'])}")
+    return latency
+
+
+def serving_phase(pipe, cpu, kernels: list[dict]) -> dict:
+    import torch
+
+    from pointnet_like_pose_estimation_tpu_torch.kernels.ball_group import ball_query_multi
+    from pointnet_like_pose_estimation_tpu_torch.kernels.fps import fps
 
     fix = np.load(FIXTURE)
     rng = np.random.default_rng(1)
 
-    def blobs(K, M):
-        return (rng.uniform(-0.5, 0.5, (K, 1, 3))
-                + 0.05 * rng.standard_normal((K, M, 3))).astype(np.float32)
-
-    requests = [("replay", fix["clusters"]), ("seeded M>1024", blobs(4, 1600)),
-                ("seeded M<1024", blobs(4, 700))]
+    requests = [("replay", fix["clusters"]), ("seeded M>1024", blobs(rng, 4, 1600)),
+                ("seeded M<1024", blobs(rng, 4, 700))]
 
     def compare(name, got, want, keys):
         np.testing.assert_array_equal(got["pred_class"], want["pred_class"], err_msg=name)
@@ -271,7 +506,7 @@ def serving_phase(kernels: list[dict]) -> dict:
 
     latency = {}
     for K in (4, 32):
-        clusters = blobs(K, 2048)
+        clusters = blobs(rng, K, 2048)
         for _ in range(2):
             pipe.infer_clusters(clusters)
         torch.cuda.synchronize()
@@ -319,10 +554,37 @@ def main() -> int:
             if "ptxas" in line:
                 log(f"  {b.name}: {line.strip()}")
 
+    from pointnet_like_pose_estimation_tpu_torch.models.fast_infer import (
+        build_pn2_msg_infer,
+        build_pn2_ssg_infer,
+    )
+    from pointnet_like_pose_estimation_tpu_torch.ops import normalize_cloud
+    from pointnet_like_pose_estimation_tpu_torch.pipeline import GraspPipeline, PipelineConfig
+
     log("kernel phase")
     kernels = kernel_phase(device)
+
     log("serving phase")
-    latency = serving_phase(kernels)
+    paths = {k: os.path.join(ROOT, v) for k, v in CHECKPOINTS.items()}
+    pipe = GraspPipeline.from_checkpoints(PipelineConfig(), paths)        # default: cuda
+    check(pipe.device.type == "cuda", "the pipeline did not default to the card")
+    cpu = GraspPipeline.from_checkpoints(PipelineConfig(), paths, device="cpu")
+    latency = serving_phase(pipe, cpu, kernels)
+
+    log("fused set-abstraction kernel phase")
+    msg_cpu = seeded_msg()
+    msg = copy.deepcopy(msg_cpu).to(device)
+    # name -> (executor on the card, the same on the CPU, the unfused model on the card)
+    executors = {
+        "SSG": (build_pn2_ssg_infer(pipe.models["classifier"]),           # default: cuda
+                build_pn2_ssg_infer(cpu.models["classifier"], device="cpu"), pipe.models["classifier"]),
+        "MSG": (build_pn2_msg_infer(msg), build_pn2_msg_infer(msg_cpu, device="cpu"), msg),
+    }
+    xyz = normalize_cloud(pipe._resample(blobs(np.random.default_rng(3), 32, 2048)))
+    kernels.append(fused_sa_phase(device, executors, xyz))
+
+    log("fast-infer phase")
+    latency.update(fast_infer_phase(pipe, executors, kernels))
 
     log(card)
     print(json.dumps({"kernels": kernels, "latency": latency, "card": card}), flush=True)

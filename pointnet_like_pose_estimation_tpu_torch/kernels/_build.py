@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own into ``build/torch_kernels/<name>-<hash>.so`` beside the package, the
-hash covering the source and the flags, so an edited source is never
-served from a stale library. Nothing is built at import: the first launch
+hash covering the source, the shared ``csrc/*.cuh`` headers and the flags,
+so an edited source is never served from a stale library. Nothing is built at import: the first launch
 of a kernel builds its library, and ``build()`` builds several at once,
 one nvcc process each, all started together. A failed build raises.
 """
@@ -21,11 +21,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNELS = ("fps", "ball_group")
+KERNELS = ("fps", "ball_group", "fused_sa")
 
 # -fmad=false: a contracted multiply-add rounds once where the PyTorch
 # version rounds twice, which moves points across the ball radius and
-# changes FPS ties. -Xptxas -v reports registers and shared memory.
+# changes FPS ties. Explicit __fmaf_rn calls (the fused-SA MLP) are kept.
+# -Xptxas -v reports registers and shared memory.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -55,6 +56,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -13,18 +13,15 @@
 // What bounds it: the distance arithmetic, B*S*N*(3P+3) flops for a full
 // scan, against bytes that are tiny (one read of the points and centroids,
 // one write of the indices). The design cuts the arithmetic the data does
-// not need: one warp per (cloud, centroid) scans the points in index order
-// 32 at a time, __ballot_sync on d2 <= r^2 yields the in-ball points of
-// the chunk already in index order, and the scan of a scale stops as soon
-// as K of them are found. The [S, N] distance tile is never stored.
-//
-// Rounding: d2 = (-2*inner + |c|^2) + |p|^2 with inner and both norms
-// summed over the channels in order, every step with __fmul_rn/__fadd_rn
-// so that nothing is contracted into an FMA. That is the form and order of
-// the PyTorch version (ops/geometry.py square_distance), which this kernel
-// matches bit for bit, so no point flips across the radius boundary.
+// not need: one warp per (cloud, centroid) runs the ballot scan of
+// ball_scan.cuh, which stops a scale as soon as K in-ball points are found.
+// The [S, N] distance tile is never stored. The scan rounds d2 exactly as
+// the PyTorch version (ops/geometry.py square_distance) does, so no point
+// flips across the radius boundary between the two.
 
 #include <cuda_runtime.h>
+
+#include "ball_scan.cuh"
 
 namespace {
 
@@ -53,43 +50,13 @@ __global__ void ball_query_kernel(const float* __restrict__ points,     // [B, N
   const float* c_ptr = centroids + task * P;
   for (int c = lane; c < P; c += 32) cen[warp][c] = c_ptr[c];
   __syncwarp();
-  float cc = 0.0f;
-  for (int c = 0; c < P; ++c) cc = __fadd_rn(cc, __fmul_rn(cen[warp][c], cen[warp][c]));
+  const float cc = plpe::sq_norm(cen[warp], P);
 
   const float* cloud = points + static_cast<size_t>(b) * N * P;
   int* row = out + task * k_total;
-  const unsigned lower_lanes = (1u << lane) - 1u;
-
-  int k_offset = 0;
   for (int l = 0; l < scales.count; ++l) {
-    const int K = scales.k[l];
-    const float r2 = scales.r2[l];
-    int found = 0;
-    int first = N - 1;  // the fill of a ball with no point in it
-    for (int base = 0; base < N && found < K; base += 32) {
-      const int j = base + lane;
-      bool in_ball = false;
-      if (j < N) {
-        const float* p = cloud + static_cast<size_t>(j) * P;
-        float inner = 0.0f, pp = 0.0f;
-        for (int c = 0; c < P; ++c) {
-          const float v = p[c];
-          inner = __fadd_rn(inner, __fmul_rn(cen[warp][c], v));
-          pp = __fadd_rn(pp, __fmul_rn(v, v));
-        }
-        const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(-2.0f, inner), cc), pp);
-        in_ball = d2 <= r2;
-      }
-      const unsigned mask = __ballot_sync(0xffffffffu, in_ball);
-      if (in_ball) {
-        const int slot = found + __popc(mask & lower_lanes);
-        if (slot < K) row[k_offset + slot] = j;
-      }
-      if (found == 0 && mask != 0u) first = base + __ffs(mask) - 1;
-      found += __popc(mask);
-    }
-    for (int slot = found + lane; slot < K; slot += 32) row[k_offset + slot] = first;
-    k_offset += K;
+    plpe::ball_scan(cloud, P, N, cen[warp], P, cc, scales.r2[l], scales.k[l], row);
+    row += scales.k[l];
   }
 }
 

@@ -1,0 +1,63 @@
+// Ball selection by one warp, shared by ball_group.cu and fused_sa.cu so
+// that the ball query and the fused set abstraction pick the same
+// neighbours bit for bit.
+//
+// The warp scans the points in index order 32 at a time. __ballot_sync on
+// d2 <= r^2 yields the in-ball points of the chunk already in index order,
+// and the scan stops as soon as K of them are found. d2 is
+// (-2*inner + |c|^2) + |p|^2, with inner and both norms summed over the
+// channels in order, every step with __fmul_rn/__fadd_rn so that nothing
+// is contracted into an FMA: the form and order of the PyTorch version
+// (ops/geometry.py square_distance).
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace plpe {
+
+// |v|^2 over n channels, summed in channel order, each step rounded.
+__device__ __forceinline__ float sq_norm(const float* v, int n) {
+  float acc = 0.0f;
+  for (int c = 0; c < n; ++c) acc = __fadd_rn(acc, __fmul_rn(v[c], v[c]));
+  return acc;
+}
+
+// Called by a whole warp for one centroid `cen` of `nch` channels, whose
+// |cen|^2 is `cc`. Point j starts at cloud + j * stride and its first
+// `nch` channels count. Writes the K lowest in-ball indices to row[0, K):
+// empty slots repeat the first in-ball index, a ball with no point in it
+// is filled with N-1.
+__device__ __forceinline__ void ball_scan(const float* __restrict__ cloud, int stride, int N,
+                                          const float* cen, int nch, float cc, float r2, int K,
+                                          int* row) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lower_lanes = (1u << lane) - 1u;
+  int found = 0;
+  int first = N - 1;  // the fill of a ball with no point in it
+  for (int base = 0; base < N && found < K; base += 32) {
+    const int j = base + lane;
+    bool in_ball = false;
+    if (j < N) {
+      const float* p = cloud + static_cast<size_t>(j) * stride;
+      float inner = 0.0f, pp = 0.0f;
+      for (int c = 0; c < nch; ++c) {
+        const float v = p[c];
+        inner = __fadd_rn(inner, __fmul_rn(cen[c], v));
+        pp = __fadd_rn(pp, __fmul_rn(v, v));
+      }
+      const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(-2.0f, inner), cc), pp);
+      in_ball = d2 <= r2;
+    }
+    const unsigned mask = __ballot_sync(0xffffffffu, in_ball);
+    if (in_ball) {
+      const int slot = found + __popc(mask & lower_lanes);
+      if (slot < K) row[slot] = j;
+    }
+    if (found == 0 && mask != 0u) first = base + __ffs(mask) - 1;
+    found += __popc(mask);
+  }
+  for (int slot = found + lane; slot < K; slot += 32) row[slot] = first;
+}
+
+}  // namespace plpe

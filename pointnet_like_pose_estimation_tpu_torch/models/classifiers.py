@@ -1,12 +1,12 @@
-"""PointNet++ SSG classifier (counterpart of ``PointNet2ClsSSG`` in
-``models/classifiers.py`` of the JAX package)."""
+"""PointNet++ SSG and MSG classifiers (counterparts of ``PointNet2ClsSSG``
+and ``PointNet2ClsMSG`` in ``models/classifiers.py`` of the JAX package)."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from pointnet_like_pose_estimation_tpu_torch.nn import DenseHead, SetAbstraction
+from pointnet_like_pose_estimation_tpu_torch.nn import DenseHead, SetAbstraction, SetAbstractionMSG
 
 
 class PointNet2ClsSSG(nn.Module):
@@ -20,6 +20,30 @@ class PointNet2ClsSSG(nn.Module):
         self.sa1 = SetAbstraction(512, 32, 0.2, 3, [64, 64, 128])
         self.sa2 = SetAbstraction(128, 64, 0.4, 128 + 3, [128, 128, 256])
         self.sa3 = SetAbstraction(None, None, None, 256 + 3, [256, 512, 1024], group_all=True)
+        self.head = DenseHead(1024, [512, 256, num_classes], style="cls_v2")
+
+    def forward(self, points: torch.Tensor):
+        p, f = self.sa1(points, None)
+        p, f = self.sa2(p, f)
+        _, f = self.sa3(p, f)
+        g = f.reshape(f.shape[0], -1)
+        log_probs = torch.log_softmax(self.head(g).float(), dim=-1)
+        return log_probs, g, torch.argmax(log_probs, dim=-1)
+
+
+class PointNet2ClsMSG(nn.Module):
+    """2 multi-scale + 1 global set abstraction classifier on ``[B, N, 3]``.
+
+    Returns ``(log_probs [B, C], global feature [B, 1024], pred [B])``.
+    """
+
+    def __init__(self, num_classes: int = 7):
+        super().__init__()
+        self.sa1 = SetAbstractionMSG(512, [16, 32, 128], [0.1, 0.2, 0.4], 3,
+                                     [[32, 32, 64], [64, 64, 128], [64, 96, 128]])
+        self.sa2 = SetAbstractionMSG(128, [32, 64, 128], [0.2, 0.4, 0.8], 320 + 3,
+                                     [[64, 64, 128], [128, 128, 256], [128, 128, 256]])
+        self.sa3 = SetAbstraction(None, None, None, 640 + 3, [256, 512, 1024], group_all=True)
         self.head = DenseHead(1024, [512, 256, num_classes], style="cls_v2")
 
     def forward(self, points: torch.Tensor):

@@ -34,6 +34,7 @@ from pointnet_like_pose_estimation_tpu_torch.utils.checkpoint import (
     from_flax_variables,
     load_flax_checkpoint,
 )
+from pointnet_like_pose_estimation_tpu_torch.utils.device import resolve_device
 
 MODEL_KEYS = ("classifier", "rotation", "sign", "translation", "width")
 CLASSIFIER = "pointnet2_cls_ssg"
@@ -61,15 +62,7 @@ class GraspPipeline:
     """The five models of a grasp request, on one device."""
 
     def __init__(self, cfg: PipelineConfig, models: dict[str, nn.Module], device="cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError("GraspPipeline: no CUDA device; pass device='cpu' to run on the CPU")
-            # float32 means float32: TF32 would round the MLPs' inputs to 10 bits
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-        elif self.device.type != "cpu":
-            raise ValueError(f"GraspPipeline: unsupported device {self.device}")
+        self.device = resolve_device(device, "GraspPipeline")
         missing = set(MODEL_KEYS) - set(models)
         if missing:
             raise KeyError(f"GraspPipeline: missing models {sorted(missing)}")

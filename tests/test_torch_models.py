@@ -41,6 +41,25 @@ def test_pointnet2_cls_ssg():
     np.testing.assert_array_equal(pred.numpy(), np.asarray(jpred))
 
 
+def test_pointnet2_cls_msg():
+    """Full widths at B = 1, N = 128: three radius scales per level, the
+    grouped channels in the reference's [features, centred coords] order."""
+    _, jmodel, state = build_state(TrainConfig(model="pointnet2_cls_msg", num_classes=NUM_CLASSES,
+                                               num_points=128))
+    variables = {"params": state.params, "batch_stats": state.batch_stats}
+    tmodel = build_model("pointnet2_cls_msg", NUM_CLASSES).eval()
+    tmodel.load_state_dict(from_flax_variables(variables), strict=True)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((1, 128, 3)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=-1).max(axis=1)[:, None, None]
+    jlp, jg, jpred = jmodel.apply(variables, jnp.asarray(x), train=False)
+    with torch.no_grad():
+        lp, g, pred = tmodel(torch.from_numpy(x))
+    _close(lp, jlp)
+    _close(g, jg)
+    np.testing.assert_array_equal(pred.numpy(), np.asarray(jpred))
+
+
 @pytest.mark.parametrize("name", ["rotation", "sign", "translation", "width"])
 def test_vanilla_heads(name):
     jmodel, variables, tmodel = _pair(name)
