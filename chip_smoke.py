@@ -8,8 +8,10 @@ Phases, any failure exits non-zero:
 1. the card, as nvidia-smi and torch report it;
 2. build every CUDA kernel from csrc/ (nvcc, sm_90a);
 3. each kernel against its plain PyTorch version on the card, on seeded
-   clouds, with exact integer equality, and its time (CUDA events) at the
-   shapes one request of 32 clusters of 2048 points gives it;
+   clouds, with exact integer equality (FPS on its register path and, with
+   N = 5000 and with C = 6, on its shared-memory path), and its time (CUDA
+   events) at the shapes one request of 32 clusters of 2048 points gives
+   it, for FPS also in microseconds per step;
 4. serve requests through GraspPipeline.from_checkpoints on the five
    committed checkpoints: the replay clusters of tests/fixtures and two
    seeded batches (M > 1024 and M < 1024). The launch counts must show
@@ -18,10 +20,15 @@ Phases, any failure exits non-zero:
    (pred_class equal, floats within rtol = atol = 1e-3: TF32 is off, so
    only summation order and last-bit FPS ties differ). Then latency per
    request at 4 and 32 clusters and peak device memory;
-5. the fused set-abstraction kernel against its plain version at the
-   shapes of the four SA calls of the two executors (B = 8) and with
-   empty balls: selected neighbours exact, features within FUSED_TOL; its
-   time at the path shapes (B = 32, N = 1024);
+5. the fused set-abstraction kernel: its MMA fragment layout on one
+   16x8x8 tile against a float64 product; then against its plain version
+   at the shapes of the four SA calls of the two executors (B = 8), with
+   empty balls, with S no multiple of the centroid tile and with K no
+   multiple of 8: selected neighbours exact, features within FUSED_TOL
+   (the products are error-compensated TF32 on the tensor cores, so the
+   features are no longer equal bit for bit); its time at the path shapes
+   (B = 32, N = 1024) beside the f32 bound and the tensor-core bound, and
+   no share of a bound may read over 100%;
 6. the fused eval executors (models/fast_infer.py): the SSG one on the
    committed r3 classifier, the MSG one on seeded weights with nontrivial
    BatchNorm. The launch counts must show 2 fused-SA and 2 FPS launches and
@@ -56,12 +63,16 @@ CHECKPOINTS = {
 }
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_clusters.npz")
 TOL = 1e-3
-# the fused kernel against its plain version: float32 sums in another order
-# (fused multiply-adds in channel order against a blocked product)
+# the fused kernel against its plain version: three-product TF32 on the
+# tensor cores, summed in f32 in another order than the plain product
 FUSED_TOL = 1e-4
-# published H100 SXM peaks (NVIDIA data sheet): HBM rate, f32 outside the tensor cores
+# the MMA self-test: one 16x8x8 tile against the float64 product
+MMA_TOL = 1e-5
+# published H100 SXM peaks (NVIDIA data sheet): HBM rate, f32 outside the
+# tensor cores, dense TF32 on them
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
 
 class SmokeFailure(RuntimeError):
@@ -162,6 +173,20 @@ def fused_sa_bound_ms(ptsfeat, centroids, radii, ks, layer_widths):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def fused_sa_tc_bound_ms(ptsfeat, centroids, ks, layer_widths) -> float:
+    """The tensor-core bound of the kernel's arithmetic: three TF32 products
+    for each f32 product of the MLP (2*Cin*Cout per neighbour row and
+    layer), over the dense TF32 peak."""
+    B, _, P = ptsfeat.shape
+    per_cloud = 0
+    for K, widths in zip(ks, layer_widths):
+        cin = P
+        for cout in widths:
+            per_cloud += K * 2 * cin * cout
+            cin = cout
+    return 1e3 * 3 * B * centroids.shape[1] * per_cloud / TF32_FLOP_PER_S
+
+
 def kernel_phase(device) -> list[dict]:
     """Exactness at the path, MSG and empty-ball shapes; times at the
     shapes of one request of 32 clusters of 2048 points."""
@@ -171,7 +196,7 @@ def kernel_phase(device) -> list[dict]:
         ball_query_multi,
         ball_query_reference,
     )
-    from pointnet_like_pose_estimation_tpu_torch.kernels.fps import fps, fps_reference
+    from pointnet_like_pose_estimation_tpu_torch.kernels.fps import fps, fps_plan, fps_reference
     from pointnet_like_pose_estimation_tpu_torch.ops import index_points, normalize_cloud
 
     rng = np.random.default_rng(0)
@@ -185,11 +210,16 @@ def kernel_phase(device) -> list[dict]:
         check(diff == 0, f"{name} {what}: kernel differs from its plain version (max {diff})")
         log(f"  {name} {what}: exact")
 
-    for B, N, S, start in [(8, 1024, 512, 0), (8, 512, 128, 0), (8, 4096, 1024, "per-cloud")]:
-        pts = torch.from_numpy(unit_clouds(rng, B, N)).to(device)
+    # the last two take the kernel's shared-memory path (N above the register path, C != 3)
+    for B, N, C, S, start in [(8, 1024, 3, 512, 0), (8, 512, 3, 128, 0), (8, 2048, 3, 1024, 0),
+                              (8, 4096, 3, 1024, "per-cloud"), (4, 5000, 3, 512, "per-cloud"),
+                              (4, 1000, 6, 256, 0)]:
+        pts = torch.from_numpy(np.concatenate(
+            [unit_clouds(rng, B, N), rng.standard_normal((B, N, C - 3)).astype(np.float32)], -1)
+        ).to(device)
         st = torch.from_numpy(rng.integers(1, N, B).astype(np.int32)).to(device) if start else 0
         same("fps", fps(pts, S, st), fps_reference(pts, S, st),
-             f"B={B} N={N} S={S} start={'per-cloud' if start else 0}")
+             f"B={B} N={N} C={C} S={S} start={'per-cloud' if start else 0} plan={fps_plan(N, C)}")
 
     cases = [
         ("SA1", 8, 1024, 512, (0.2,), (32,), False),
@@ -222,10 +252,10 @@ def kernel_phase(device) -> list[dict]:
     for what, pts, S in fps_calls:
         B, N, C = pts.shape
         bound, by = fps_bound_ms(B, N, C, S)
-        shapes.append({"call": what, "shape": [B, N, C, S],
-                       "ms": cuda_ms(lambda: fps(pts, S), 20),
+        ms = cuda_ms(lambda: fps(pts, S), 20)
+        shapes.append({"call": what, "shape": [B, N, C, S], "ms": ms,
                        "plain_ms": cuda_ms(lambda: fps_reference(pts, S), 2),
-                       "bound_ms": bound, "bound_by": by})
+                       "bound_ms": bound, "bound_by": by, "us_per_step": 1e3 * ms / S})
     entries.append(("fps", "pointnet_like_pose_estimation_tpu_torch/kernels/csrc/fps.cu",
                     "pointnet_like_pose_estimation_tpu/kernels/fps.py:35", shapes))
     shapes = []
@@ -246,8 +276,12 @@ def kernel_entry(name, source, replaces, err, shapes, per_request_of) -> dict:
     """One kernel of the kernels JSON line: its times and bounds summed over
     the calls of one request; ``launches`` is filled in by the path runs."""
     for s in shapes:
+        extra = f", {s['us_per_step']:.4f} us/step" if "us_per_step" in s else ""
+        if "tc_bound_ms" in s:
+            extra = (f" = {100 * s['bound_ms'] / s['ms']:.1f}% of the f32 bound, tensor-core bound "
+                     f"{s['tc_bound_ms']:.6f} ms = {100 * s['tc_bound_ms'] / s['ms']:.1f}%")
         log(f"  time {name} {s['call']} {s['shape']}: kernel {s['ms']:.4f} ms, "
-            f"plain {s['plain_ms']:.4f} ms, bound {s['bound_ms']:.6f} ms ({s['bound_by']})")
+            f"plain {s['plain_ms']:.4f} ms, bound {s['bound_ms']:.6f} ms ({s['bound_by']}){extra}")
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": 0, "max_abs_err": err,
@@ -294,11 +328,13 @@ def seeded_msg():
 
 
 def fused_sa_phase(device, executors, xyz) -> dict:
-    """The fused-SA kernel against its plain version on seeded clouds and
-    seeded folded weights at the shapes of the four SA calls (B = 8) and
-    with empty balls: selected indices exact, features within FUSED_TOL.
-    Then its time at the path shapes: ``xyz`` [32, 1024, 3] through each
-    executor's own folded SA1 and SA2."""
+    """The MMA tile self-test; then the fused-SA kernel against its plain
+    version on seeded clouds and seeded folded weights at the shapes of the
+    four SA calls (B = 8), with empty balls, with a ragged last centroid
+    tile and with K no multiple of 8: selected indices exact, features
+    within FUSED_TOL. Then its time at the path shapes: ``xyz``
+    [32, 1024, 3] through each executor's own folded SA1 and SA2, beside
+    both bounds."""
     import torch
 
     from pointnet_like_pose_estimation_tpu_torch.kernels.ball_group import ball_query_reference
@@ -306,29 +342,50 @@ def fused_sa_phase(device, executors, xyz) -> dict:
     from pointnet_like_pose_estimation_tpu_torch.kernels.fused_sa import (
         fused_sa_infer,
         fused_sa_reference,
+        launch_plan,
+        mma_tile_selftest,
     )
     from pointnet_like_pose_estimation_tpu_torch.models.fast_infer import fold_sa_level
     from pointnet_like_pose_estimation_tpu_torch.ops import index_points
 
     rng = np.random.default_rng(4)
+    a = torch.from_numpy(rng.standard_normal((16, 8)).astype(np.float32)).to(device)
+    b = torch.from_numpy(rng.standard_normal((8, 8)).astype(np.float32)).to(device)
+    tile = mma_tile_selftest(a, b)
+    torch.cuda.synchronize()
+    diff = float((tile - (a.double() @ b.double()).float()).abs().max())
+    check(diff <= MMA_TOL, f"fused_sa MMA self-test: tile differs from the f64 product (max {diff})")
+    log(f"  fused_sa MMA self-test 16x8x8: max abs diff {diff:.3g} from the f64 product")
+
     levels = {f"{ex} SA{i + 1}": fold_sa_level(getattr(model, f"sa{i + 1}"))
               for ex, (_, _, model) in executors.items() for i in range(2)}
     err = 0.0
-    cases = [(name, N, lv, 0.0) for name, N, lv in [
-        ("SSG SA1", 1024, levels["SSG SA1"]), ("SSG SA2", 512, levels["SSG SA2"]),
-        ("MSG SA1", 1024, levels["MSG SA1"]), ("MSG SA2", 512, levels["MSG SA2"])]]
-    cases.append(("empty balls", 1024, levels["MSG SA1"], 4.0))
-    for what, N, (S, radii, ks, widths, model_w), offset in cases:
-        B, P = 8, model_w[0].shape[0]
+
+    def case(what, N, level, offset=0.0, S=None, B=8):
+        S0, radii, ks, widths, model_w = level
+        return what, B, N, S or S0, radii, ks, widths, model_w[0].shape[0], offset
+
+    cases = [case("SSG SA1", 1024, levels["SSG SA1"]), case("SSG SA2", 512, levels["SSG SA2"]),
+             case("MSG SA1", 1024, levels["MSG SA1"]), case("MSG SA2", 512, levels["MSG SA2"]),
+             case("empty balls", 1024, levels["MSG SA1"], offset=4.0),
+             case("ragged S, MSG SA1", 1024, levels["MSG SA1"], S=509),
+             case("ragged S, SSG SA2", 512, levels["SSG SA2"], S=127),
+             case("ragged S, SSG SA2, more centroids a block", 512, levels["SSG SA2"], S=127, B=40),
+             ("K = 20 and 50, P = 7", 8, 512, 64, (0.3, 0.5), (20, 50), ((16, 24), (40, 8)), 7, 0.0)]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for what, B, N, S, radii, ks, widths, P, offset in cases:
         xyz8 = torch.from_numpy(unit_clouds(rng, B, N)).to(device)
         feats = np.abs(rng.standard_normal((B, N, P - 3))).astype(np.float32)
         pts = torch.cat([xyz8, torch.from_numpy(feats).to(device)], dim=-1).contiguous()
         cent = (index_points(xyz8, fps(xyz8, S)) + offset).contiguous()
         weights = []
-        for w in model_w:
-            scale = 1.0 / np.sqrt(w.shape[0]) if w.dim() == 2 else 0.1
-            weights.append(torch.from_numpy(
-                (scale * rng.standard_normal(tuple(w.shape))).astype(np.float32)).to(device))
+        for ws in widths:
+            cin = P
+            for cout in ws:
+                weights += [rng.standard_normal((cin, cout)) / np.sqrt(cin),
+                            0.1 * rng.standard_normal(cout)]
+                cin = cout
+        weights = [torch.from_numpy(w.astype(np.float32)).to(device) for w in weights]
         idx = torch.empty((B, S, sum(ks)), dtype=torch.int32, device=device)
         got = fused_sa_infer(pts, cent, weights, radii, ks, widths, idx_out=idx)
         torch.cuda.synchronize()
@@ -342,8 +399,9 @@ def fused_sa_phase(device, executors, xyz) -> dict:
         err = max(err, diff)
         check(torch.allclose(got, want, rtol=FUSED_TOL, atol=FUSED_TOL),
               f"fused_sa {what}: differs from its plain version (max {diff})")
-        log(f"  fused_sa {what} B={B} N={N} P={P} S={S} ks={ks}: selection exact, "
-            f"features max abs diff {diff:.3g}")
+        rows, tile_c, nbytes = launch_plan(P, ks, widths, (B, S, sms))
+        log(f"  fused_sa {what} B={B} N={N} P={P} S={S} ks={ks} ({rows} rows, {tile_c} centroids "
+            f"a block, {nbytes} B shared): selection exact, features max abs diff {diff:.3g}")
 
     shapes = []
     for ex in executors:
@@ -354,10 +412,14 @@ def fused_sa_phase(device, executors, xyz) -> dict:
             cent = index_points(p, fps(p, S)).contiguous()
             args = (ptsfeat, cent, weights, radii, ks, widths)
             bound, by = fused_sa_bound_ms(ptsfeat, cent, radii, ks, widths)
+            tc_bound = fused_sa_tc_bound_ms(ptsfeat, cent, ks, widths)
+            ms = cuda_ms(lambda: fused_sa_infer(*args), 10)
+            check(ms >= bound and ms >= tc_bound,
+                  f"fused_sa {ex} SA{i + 1}: {ms} ms reads over 100% of a bound "
+                  f"(f32 {bound} ms, tensor cores {tc_bound} ms)")
             shapes.append({"call": f"{ex} SA{i + 1}", "shape": [*ptsfeat.shape, S, *ks],
-                           "ms": cuda_ms(lambda: fused_sa_infer(*args), 10),
-                           "plain_ms": cuda_ms(lambda: fused_sa_reference(*args), 3),
-                           "bound_ms": bound, "bound_by": by})
+                           "ms": ms, "plain_ms": cuda_ms(lambda: fused_sa_reference(*args), 3),
+                           "bound_ms": bound, "bound_by": by, "tc_bound_ms": tc_bound})
             f = fused_sa_infer(*args)
             p, ptsfeat = cent, torch.cat([cent, f], dim=-1)
     return kernel_entry("fused_sa", "pointnet_like_pose_estimation_tpu_torch/kernels/csrc/fused_sa.cu",

@@ -4,7 +4,11 @@
 //
 // The warp scans the points in index order 32 at a time. __ballot_sync on
 // d2 <= r^2 yields the in-ball points of the chunk already in index order,
-// and the scan stops as soon as K of them are found. d2 is
+// and the scan stops as soon as K of them are found. The distances of
+// kUnroll chunks are formed together, so that their loads overlap; the
+// ballots still go chunk by chunk and stop at K. A caller whose warps have
+// nothing else to hide the loads behind takes kUnroll > 1; a scan that
+// mostly stops early is served best by 1. d2 is
 // (-2*inner + |c|^2) + |p|^2, with inner and both norms summed over the
 // channels in order, every step with __fmul_rn/__fadd_rn so that nothing
 // is contracted into an FMA: the form and order of the PyTorch version
@@ -28,6 +32,7 @@ __device__ __forceinline__ float sq_norm(const float* v, int n) {
 // `nch` channels count. Writes the K lowest in-ball indices to row[0, K):
 // empty slots repeat the first in-ball index, a ball with no point in it
 // is filled with N-1.
+template <int kUnroll = 1>
 __device__ __forceinline__ void ball_scan(const float* __restrict__ cloud, int stride, int N,
                                           const float* cen, int nch, float cc, float r2, int K,
                                           int* row) {
@@ -35,27 +40,44 @@ __device__ __forceinline__ void ball_scan(const float* __restrict__ cloud, int s
   const unsigned lower_lanes = (1u << lane) - 1u;
   int found = 0;
   int first = N - 1;  // the fill of a ball with no point in it
-  for (int base = 0; base < N && found < K; base += 32) {
-    const int j = base + lane;
-    bool in_ball = false;
-    if (j < N) {
-      const float* p = cloud + static_cast<size_t>(j) * stride;
-      float inner = 0.0f, pp = 0.0f;
-      for (int c = 0; c < nch; ++c) {
-        const float v = p[c];
-        inner = __fadd_rn(inner, __fmul_rn(cen[c], v));
-        pp = __fadd_rn(pp, __fmul_rn(v, v));
+  for (int base = 0; base < N && found < K; base += 32 * kUnroll) {
+    // channels outermost, so that the chunks' loads of one channel go together
+    const float* p[kUnroll];
+    float inner[kUnroll], pp[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = min(base + u * 32 + lane, N - 1);
+      p[u] = cloud + static_cast<size_t>(j) * stride;
+      inner[u] = pp[u] = 0.0f;
+    }
+    for (int c = 0; c < nch; ++c) {
+      const float cv = cen[c];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const float v = p[u][c];
+        inner[u] = __fadd_rn(inner[u], __fmul_rn(cv, v));
+        pp[u] = __fadd_rn(pp[u], __fmul_rn(v, v));
       }
-      const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(-2.0f, inner), cc), pp);
-      in_ball = d2 <= r2;
     }
-    const unsigned mask = __ballot_sync(0xffffffffu, in_ball);
-    if (in_ball) {
-      const int slot = found + __popc(mask & lower_lanes);
-      if (slot < K) row[slot] = j;
+    bool in_ball[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(-2.0f, inner[u]), cc), pp[u]);
+      in_ball[u] = base + u * 32 + lane < N && d2 <= r2;
     }
-    if (found == 0 && mask != 0u) first = base + __ffs(mask) - 1;
-    found += __popc(mask);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (found < K) {  // the same for every lane
+        const int first_j = base + u * 32;
+        const unsigned mask = __ballot_sync(0xffffffffu, in_ball[u]);
+        if (in_ball[u]) {
+          const int slot = found + __popc(mask & lower_lanes);
+          if (slot < K) row[slot] = first_j + lane;
+        }
+        if (found == 0 && mask != 0u) first = first_j + __ffs(mask) - 1;
+        found += __popc(mask);
+      }
+    }
   }
   for (int slot = found + lane; slot < K; slot += 32) row[slot] = first;
 }

@@ -15,8 +15,33 @@ import torch
 
 from pointnet_like_pose_estimation_tpu_torch.kernels import _build
 
-# the kernel keeps one float of running distance per point in shared memory
+# the shared path keeps one float of running distance per point in shared memory
 MAX_POINTS = (227 * 1024 - 1024) // 4
+# the register path: C == 3 and at most 8 points a thread (csrc/fps.cu)
+MAX_REGISTER_POINTS = 4096
+
+
+def fps_plan(N: int, C: int = 3) -> tuple[int, int]:
+    """Launch plan ``(threads, points_per_thread)`` for clouds of N points.
+
+    ``points_per_thread`` in {1, 2, 4, 8} takes the kernel's register path
+    (coordinates and running distances in registers); 0 takes its shared
+    path (distances in shared memory), for C != 3 or N above
+    ``MAX_REGISTER_POINTS``. Few, full threads keep the one barrier of a
+    step cheap; the table was picked by measurement
+    (``scripts/tune_torch_fps.py``, recorded in PERF.md).
+    """
+    if not 0 < N <= MAX_POINTS:
+        raise ValueError(f"fps: N={N} outside (0, {MAX_POINTS}]")
+    if C != 3 or N > MAX_REGISTER_POINTS:
+        return 1024, 0
+    if N <= 128:
+        return 32 * ((N + 31) // 32), 1
+    if N <= 256:
+        return 128, 2
+    if N <= 2048:
+        return 256, 2 if N <= 512 else 4 if N <= 1024 else 8
+    return 512, 8
 
 
 def _start_tensor(start_idx, B: int, N: int, device) -> torch.Tensor:
@@ -69,15 +94,17 @@ def fps(points: torch.Tensor, num_samples: int, start_idx=0) -> torch.Tensor:
     if points.dtype != torch.float32 or points.dim() != 3:
         raise ValueError(f"fps: want [B, N, C] float32, got {points.dtype} {tuple(points.shape)}")
     B, N, C = points.shape
-    if not 0 < N <= MAX_POINTS or num_samples <= 0:
-        raise ValueError(f"fps: N={N} outside (0, {MAX_POINTS}] or S={num_samples} <= 0")
+    if num_samples <= 0 or not 0 < C <= 16:
+        raise ValueError(f"fps: S={num_samples} <= 0 or C={C} outside (0, 16]")
+    threads, points_per_thread = fps_plan(N, C)
     points = points.contiguous()
     start = _start_tensor(start_idx, B, N, points.device)
     out = torch.empty((B, num_samples), dtype=torch.int32, device=points.device)
     lib = _build.library("fps")
-    lib.plpe_fps.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.plpe_fps.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     code = lib.plpe_fps(
         points.data_ptr(), start.data_ptr(), out.data_ptr(), B, N, C, num_samples,
+        threads, points_per_thread,
         torch.cuda.current_stream(points.device).cuda_stream,
     )
     _build.check(lib, code, "fps")

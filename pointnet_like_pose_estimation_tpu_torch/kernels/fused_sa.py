@@ -5,7 +5,10 @@ version.
 tpu/kernels/fused_sa.py`` (``_fused_sa_kernel`` via ``fused_sa_infer``). A
 CPU tensor takes ``fused_sa_reference``; a CUDA tensor launches
 ``csrc/fused_sa.cu`` or raises. The kernel's design and what bounds it are
-noted in the source.
+noted in the source. Its MLP products run on the tensor cores as
+error-compensated TF32 (``matmul_3xtf32`` spells the arithmetic in plain
+PyTorch), so its features agree with the plain version to about 1e-5 at
+the model's widths, not bit for bit; the selected neighbours are exact.
 """
 
 from __future__ import annotations
@@ -21,27 +24,98 @@ from pointnet_like_pose_estimation_tpu_torch.kernels.ball_group import (
 )
 from pointnet_like_pose_estimation_tpu_torch.ops.geometry import index_points
 
-# what csrc/fused_sa.cu takes: one warp selects each scale, at most 4
-# layers a scale, and its shared memory (kernel constants mirrored below)
+# what csrc/fused_sa.cu takes (kernel constants mirrored below)
 MAX_SCALES = 8
 MAX_LAYERS = 4
 MAX_SHARED_BYTES = 227 * 1024 - 1024
-_PITCH = 36        # kMaxRows + 4: a channel's row of one neighbour chunk
-_GROUPS = 4        # kMaxRows / kRowsPerItem
+_RING_FLOATS = 3 * 32 * (128 + 8)   # kStages * kSliceRows * kStagePitch
+_WARPS = 16                         # kThreads / 32
+_MAX_CHUNK_GROUPS = 4
 
 
-def shared_bytes(P: int, ks, layer_widths) -> int:
-    """Dynamic shared memory the kernel needs: the gathered chunk and the
-    ping-pong activations (channel-major), the running max, the indices."""
-    buf0, buf1 = P, 0
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def launch_plan(P: int, ks, layer_widths, grid=None) -> tuple[int, int, int]:
+    """``(rows, centroids_per_block, shared_bytes)`` of one kernel launch.
+
+    A block owns ``centroids_per_block`` centroids and runs a scale's MLP
+    over chunks of ``rows`` neighbour rows: 128 where the two activation
+    buffers (row-major, pitch ``round_up(width, 8) + 4``), the weight ring,
+    the running max ``[centroids, sum C_last]``, the centroids, the selected
+    indices and the biases fit in ``MAX_SHARED_BYTES``, else 64. K is padded
+    to a multiple of 16 rows, and a block takes as many centroids as fill
+    one chunk at the smallest K, times 2 or 4 while its (centroid, scale)
+    pairs leave selecting warps idle: the block's set-up is then shared by
+    more chunks. ``grid = (clouds, centroids per cloud, SMs of the card)`` takes
+    that factor back while the launch would have under two blocks an SM.
+    The kernel computes the same shared-memory figure and refuses a launch
+    whose plan differs. Raises ``ValueError`` when even 64 rows do not fit.
+    """
+    width0, width1 = (4 if P == 3 else P), 0
     for widths in layer_widths:
         for li, c in enumerate(widths[:-1]):
             if li % 2:
-                buf0 = max(buf0, c)
+                width0 = max(width0, c)
             else:
-                buf1 = max(buf1, c)
-    pool = max(widths[-1] for widths in layer_widths)
-    return 4 * ((buf0 + buf1) * _PITCH + _GROUPS * pool + sum(ks))
+                width1 = max(width1, c)
+    pitches = _round_up(width0, 8) + 4 + (_round_up(width1, 8) + 4 if width1 else 0)
+    c_total = sum(widths[-1] for widths in layer_widths)
+    biases = sum(sum(widths) for widths in layer_widths)
+    for rows in (128, 64):
+        base = max(1, rows // min(_round_up(k, 16) for k in ks))
+        groups = 1
+        while groups < _MAX_CHUNK_GROUPS and base * groups * len(ks) < _WARPS:
+            groups *= 2
+        if grid is not None:
+            clouds, per_cloud, sms = grid
+            while groups > 1 and clouds * -(-per_cloud // (base * groups)) < 2 * sms:
+                groups //= 2
+        centroids = base * groups
+        nbytes = 4 * (rows * pitches + _RING_FLOATS + centroids * (c_total + 4 + sum(ks)) + biases)
+        if nbytes <= MAX_SHARED_BYTES:
+            return rows, centroids, nbytes
+    raise ValueError(f"fused_sa: P={P}, ks={ks}, widths={layer_widths} exceed the kernel's "
+                     f"{MAX_SHARED_BYTES} bytes of shared memory ({nbytes} at 64 rows)")
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's operand split, in plain PyTorch: ``hi`` is float32 ``x``
+    with its mantissa rounded to TF32's 10 bits (to nearest, ties away from
+    zero), ``lo`` is ``x - hi`` with its mantissa cut to 10 bits."""
+    def bits(v):
+        return v.contiguous().view(torch.int32)
+
+    hi = ((bits(x) + 0x1000) & ~0x1FFF).view(torch.float32)
+    return hi, (bits(x - hi) & ~0x1FFF).view(torch.float32)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the kernel forms it: three products of the TF32 halves,
+    small terms first, summed in float32."""
+    a_hi, a_lo = tf32_split(a)
+    b_hi, b_lo = tf32_split(b)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def mma_tile_selftest(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [16, 8] @ b [8, 8]`` on the card through the kernel's MMA fragment
+    layout and compensated product, one warp: a check of the layout against
+    any other product of the same tile."""
+    for t, shape in ((a, (16, 8)), (b, (8, 8))):
+        if (t.device.type != "cuda" or t.dtype != torch.float32 or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"mma_tile_selftest: want a contiguous float32 CUDA tensor {shape}")
+    out = torch.empty((16, 8), dtype=torch.float32, device=a.device)
+    lib = _build.library("fused_sa")
+    lib.plpe_fused_sa_mma_selftest.argtypes = [ctypes.c_void_p] * 4
+    lib.plpe_fused_sa_mma_selftest.restype = ctypes.c_int
+    code = lib.plpe_fused_sa_mma_selftest(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(lib, code, "fused_sa mma selftest")
+    return out
 
 
 def fused_sa_reference(
@@ -76,9 +150,13 @@ def _validate(ptsfeat, centroids, weights, radii, ks, layer_widths, idx_out):
         raise ValueError(f"fused_sa: bad scales radii={radii} ks={ks} widths={layer_widths}")
     if min(ks) <= 0 or any(not 0 < len(ws) <= MAX_LAYERS or min(ws) <= 0 for ws in layer_widths):
         raise ValueError(f"fused_sa: bad ks={ks} or widths={layer_widths}")
-    if shared_bytes(P, ks, layer_widths) > MAX_SHARED_BYTES:
-        raise ValueError(f"fused_sa: P={P}, ks={ks}, widths={layer_widths} exceed the kernel's "
-                         f"{MAX_SHARED_BYTES} bytes of shared memory")
+    if any(c % 8 for ws in layer_widths for c in ws):
+        raise ValueError(f"fused_sa: widths={layer_widths} must be multiples of 8 (MMA tiles)")
+    grid = None
+    if ptsfeat.device.type == "cuda":
+        sms = torch.cuda.get_device_properties(ptsfeat.device).multi_processor_count
+        grid = (B, centroids.shape[1], sms)
+    plan = launch_plan(P, ks, layer_widths, grid)
     shapes = []
     for widths in layer_widths:
         cin = P
@@ -92,12 +170,15 @@ def _validate(ptsfeat, centroids, weights, radii, ks, layer_widths, idx_out):
             raise ValueError("fused_sa: want contiguous float32 tensors on one device")
         if shape is not None and tuple(t.shape) != shape:
             raise ValueError(f"fused_sa: weight {tuple(t.shape)}, want {shape}")
+        if shape is not None and len(shape) == 2 and t.device.type == "cuda" and t.data_ptr() % 16:
+            raise ValueError("fused_sa: want 16-byte aligned weight matrices (asynchronous copies)")
     if idx_out is not None and (
         idx_out.dtype != torch.int32 or not idx_out.is_contiguous()
         or tuple(idx_out.shape) != (B, centroids.shape[1], sum(ks))
         or idx_out.device != ptsfeat.device
     ):
         raise ValueError("fused_sa: idx_out must be a contiguous int32 [B, S, sum(ks)] beside ptsfeat")
+    return plan
 
 
 def fused_sa_infer(
@@ -128,7 +209,7 @@ def fused_sa_infer(
     ks = tuple(int(k) for k in ks)
     layer_widths = tuple(tuple(int(c) for c in ws) for ws in layer_widths)
     weights = tuple(weights)
-    _validate(ptsfeat, centroids, weights, radii, ks, layer_widths, idx_out)
+    rows, tile, nbytes = _validate(ptsfeat, centroids, weights, radii, ks, layer_widths, idx_out)
     if ptsfeat.device.type == "cpu":
         if idx_out is not None:
             idx_out.copy_(ball_query_reference(ptsfeat[..., :3], centroids, radii, ks))
@@ -147,14 +228,15 @@ def fused_sa_infer(
     ptrs = (ctypes.c_void_p * len(weights))(*[w.data_ptr() for w in weights])
     lib = _build.library("fused_sa")
     lib.plpe_fused_sa.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     )
     lib.plpe_fused_sa.restype = ctypes.c_int
     code = lib.plpe_fused_sa(
         ptsfeat.data_ptr(), centroids.data_ptr(), out.data_ptr(),
         None if idx_out is None else idx_out.data_ptr(), B, N, S, P, n,
         ctypes.addressof(r2), ctypes.addressof(kk), ctypes.addressof(counts),
-        ctypes.addressof(widths), ctypes.addressof(ptrs),
+        ctypes.addressof(widths), ctypes.addressof(ptrs), rows, tile, nbytes,
         torch.cuda.current_stream(ptsfeat.device).cuda_stream,
     )
     _build.check(lib, code, "fused_sa")

@@ -36,7 +36,7 @@ REQUESTS = 5
 
 
 def group(name: str) -> str:
-    if "fps_kernel" in name:
+    if "fps_register_kernel" in name or "fps_shared_kernel" in name:
         return "fps (CUDA kernel)"
     if "ball_query_kernel" in name:
         return "ball_query (CUDA kernel)"

@@ -19,6 +19,8 @@ from pointnet_like_pose_estimation_tpu_torch.kernels.fps import fps, fps_referen
 from pointnet_like_pose_estimation_tpu_torch.kernels.fused_sa import (
     fused_sa_infer,
     fused_sa_reference,
+    matmul_3xtf32,
+    mma_tile_selftest,
 )
 
 pytestmark = pytest.mark.cuda
@@ -38,13 +40,39 @@ def _clouds(B, N, seed):
     return torch.from_numpy(x / np.linalg.norm(x, axis=-1).max(axis=1)[:, None, None])
 
 
-@pytest.mark.parametrize("B,N,S", [(4, 1024, 512), (2, 3000, 1024), (3, 100, 200)])
-def test_fps_kernel_matches_plain_version(card, B, N, S):
-    pts = _clouds(B, N, 0).to(card)
+@pytest.mark.parametrize(
+    "B,N,C,S",
+    [
+        (3, 100, 3, 200),      # 1 point a thread, S > N
+        (2, 200, 3, 64),       # 2 points a thread, 128 threads
+        (4, 512, 3, 128),      # 2 points a thread, 256 threads
+        (2, 1000, 3, 512),     # 4 points a thread, N no multiple of 32
+        (4, 1024, 3, 512),
+        (2, 2048, 3, 1024),    # 8 points a thread, 256 threads
+        (2, 3000, 3, 1024),    # 8 points a thread, 512 threads, ragged
+        (2, 5000, 3, 256),     # above the register path: distances in shared memory
+        (2, 777, 6, 128),      # C != 3 takes the shared path too
+    ],
+)
+def test_fps_kernel_matches_plain_version(card, B, N, C, S):
+    rng = np.random.default_rng(0)
+    pts = torch.cat([_clouds(B, N, 0), torch.from_numpy(
+        rng.standard_normal((B, N, C - 3)).astype(np.float32))], dim=-1).to(card)
     start = torch.arange(B, dtype=torch.int32, device=card) * 7 % N
     got = fps(pts, S, start)
     torch.cuda.synchronize()
     assert torch.equal(got, fps_reference(pts, S, start))
+
+
+@pytest.mark.parametrize("M,reps", [(40, 4), (300, 4), (700, 8)])
+def test_fps_kernel_ties_take_the_lowest_index(card, M, reps):
+    """A tiled cloud holds exact duplicates, so the argmax ties across
+    threads and warps; the first index must win, on both paths."""
+    pts = _clouds(2, M, 5).repeat(1, reps, 1).to(card)
+    got = fps(pts, M + 8, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fps_reference(pts, M + 8, 3))
+    assert int(got[:, :M].max()) < M
 
 
 @pytest.mark.parametrize(
@@ -80,20 +108,31 @@ def _folded_weights(rng, P, layer_widths):
     return [torch.from_numpy(w) for w in out]
 
 
+_MSG_SA1 = ((0.1, 0.2, 0.4), (16, 32, 128), ((32, 32, 64), (64, 64, 128), (64, 96, 128)))
+_MSG_SA2 = ((0.2, 0.4, 0.8), (32, 64, 128), ((64, 64, 128), (128, 128, 256), (128, 128, 256)))
+
+
 @pytest.mark.parametrize(
-    "N,D,S,radii,ks,widths,offset",
+    "B,N,D,S,radii,ks,widths,offset",
     [
-        (1024, 0, 512, (0.2,), (32,), ((64, 64, 128),), 0.0),
-        (512, 320, 128, (0.2, 0.4, 0.8), (32, 64, 128),
-         ((64, 64, 128), (128, 128, 256), (128, 128, 256)), 0.0),
-        (1024, 0, 512, (0.2,), (32,), ((64, 64, 128),), 4.0),
+        (2, 1024, 0, 512, (0.2,), (32,), ((64, 64, 128),), 0.0),
+        (2, 512, 128, 128, (0.4,), (64,), ((128, 128, 256),), 0.0),
+        (2, 1024, 0, 512, *_MSG_SA1, 0.0),
+        (2, 512, 320, 128, *_MSG_SA2, 0.0),
+        (2, 1024, 0, 512, (0.2,), (32,), ((64, 64, 128),), 4.0),
+        (2, 1024, 0, 509, *_MSG_SA1, 0.0),                         # S no multiple of 8
+        (3, 512, 128, 127, (0.4,), (64,), ((128, 128, 256),), 0.0),
+        (40, 512, 128, 127, (0.4,), (64,), ((128, 128, 256),), 0.0),       # 8 centroids a block
+        (2, 512, 4, 64, (0.3, 0.5), (20, 50), ((16, 24), (40, 8)), 0.0),   # K no multiple of 8, P = 7
+        (1, 256, 0, 3, (0.3,), (20,), ((8,),), 0.0),               # one block, one FMA layer
     ],
-    ids=["ssg_sa1", "msg_sa2", "empty_balls"],
+    ids=["ssg_sa1", "ssg_sa2", "msg_sa1", "msg_sa2", "empty_balls", "ragged_msg_sa1",
+         "ragged_ssg_sa2", "ragged_ssg_sa2_wide_tile", "odd_k", "tiny"],
 )
-def test_fused_sa_kernel_matches_plain_version(card, N, D, S, radii, ks, widths, offset):
-    """Selected indices exact; features to 1e-4 (f32 sums in another order)."""
+def test_fused_sa_kernel_matches_plain_version(card, B, N, D, S, radii, ks, widths, offset):
+    """Selected indices exact; features to 1e-4 (the kernel's products are
+    error-compensated TF32 on the tensor cores, summed in another order)."""
     rng = np.random.default_rng(3)
-    B = 2
     xyz = _clouds(B, N, 3)
     pts = torch.cat([xyz, torch.from_numpy(rng.standard_normal((B, N, D)).astype(np.float32))], -1)
     cent = xyz[:, rng.permutation(N)[:S]] + offset
@@ -107,6 +146,18 @@ def test_fused_sa_kernel_matches_plain_version(card, N, D, S, radii, ks, widths,
         assert bool((idx == N - 1).all())
     want = fused_sa_reference(pts, cent, weights, radii, ks, widths)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_mma_tile_matches_scalar_product(card):
+    """The kernel's fragment layout and three-product TF32 on one 16x8x8
+    tile against the float64 product and the same arithmetic in PyTorch."""
+    rng = np.random.default_rng(6)
+    a = torch.from_numpy(rng.standard_normal((16, 8)).astype(np.float32)).to(card)
+    b = torch.from_numpy(rng.standard_normal((8, 8)).astype(np.float32)).to(card)
+    got = mma_tile_selftest(a, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, (a.double() @ b.double()).float(), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got, matmul_3xtf32(a, b), rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("name", ["pointnet2_cls_ssg", "pointnet2_cls_msg"])
