@@ -26,9 +26,10 @@ Phases, any failure exits non-zero:
    empty balls, with S no multiple of the centroid tile and with K no
    multiple of 8: selected neighbours exact, features within FUSED_TOL
    (the products are error-compensated TF32 on the tensor cores, so the
-   features are no longer equal bit for bit); its time at the path shapes
-   (B = 32, N = 1024) beside the f32 bound and the tensor-core bound, and
-   no share of a bound may read over 100%;
+   features are no longer equal bit for bit); then the same two checks
+   and its time at the path's own calls (B = 32, N = 1024, the executors'
+   folded weights) beside the f32 bound and the tensor-core bound, and no
+   share of a bound may read over 100%;
 6. the fused eval executors (models/fast_infer.py): the SSG one on the
    committed r3 classifier, the MSG one on seeded weights with nontrivial
    BatchNorm. The launch counts must show 2 fused-SA and 2 FPS launches and
@@ -176,13 +177,16 @@ def fused_sa_bound_ms(ptsfeat, centroids, radii, ks, layer_widths):
 def fused_sa_tc_bound_ms(ptsfeat, centroids, ks, layer_widths) -> float:
     """The tensor-core bound of the kernel's arithmetic: three TF32 products
     for each f32 product of the MLP (2*Cin*Cout per neighbour row and
-    layer), over the dense TF32 peak."""
+    layer), over the dense TF32 peak. A first layer of three channels is
+    left out: the kernel runs it as f32 multiply-adds, not on the tensor
+    cores."""
     B, _, P = ptsfeat.shape
     per_cloud = 0
     for K, widths in zip(ks, layer_widths):
         cin = P
         for cout in widths:
-            per_cloud += K * 2 * cin * cout
+            if cin != 3:
+                per_cloud += K * 2 * cin * cout
             cin = cout
     return 1e3 * 3 * B * centroids.shape[1] * per_cloud / TF32_FLOP_PER_S
 
@@ -332,9 +336,9 @@ def fused_sa_phase(device, executors, xyz) -> dict:
     version on seeded clouds and seeded folded weights at the shapes of the
     four SA calls (B = 8), with empty balls, with a ragged last centroid
     tile and with K no multiple of 8: selected indices exact, features
-    within FUSED_TOL. Then its time at the path shapes: ``xyz``
-    [32, 1024, 3] through each executor's own folded SA1 and SA2, beside
-    both bounds."""
+    within FUSED_TOL. Then the path's own calls: ``xyz`` [32, 1024, 3]
+    through each executor's folded SA1 and SA2, held against the plain
+    version in the same way and timed beside both bounds."""
     import torch
 
     from pointnet_like_pose_estimation_tpu_torch.kernels.ball_group import ball_query_reference
@@ -370,9 +374,31 @@ def fused_sa_phase(device, executors, xyz) -> dict:
              case("empty balls", 1024, levels["MSG SA1"], offset=4.0),
              case("ragged S, MSG SA1", 1024, levels["MSG SA1"], S=509),
              case("ragged S, SSG SA2", 512, levels["SSG SA2"], S=127),
-             case("ragged S, SSG SA2, more centroids a block", 512, levels["SSG SA2"], S=127, B=40),
+             case("ragged S, SSG SA2, more clouds", 512, levels["SSG SA2"], S=127, B=40),
              ("K = 20 and 50, P = 7", 8, 512, 64, (0.3, 0.5), (20, 50), ((16, 24), (40, 8)), 7, 0.0)]
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+
+    def compare(what, pts, cent, weights, radii, ks, widths, empty=False):
+        nonlocal err
+        B, N, P = pts.shape
+        S = cent.shape[1]
+        idx = torch.empty((B, S, sum(ks)), dtype=torch.int32, device=device)
+        got = fused_sa_infer(pts, cent, weights, radii, ks, widths, idx_out=idx)
+        torch.cuda.synchronize()
+        check(torch.equal(idx, ball_query_reference(pts[..., :3], cent, radii, ks)),
+              f"fused_sa {what}: selection differs from ball_query_reference")
+        if empty:
+            check(bool((idx == N - 1).all()), "fused_sa empty balls: selection is not N-1")
+        want = fused_sa_reference(pts, cent, weights, radii, ks, widths)
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()), f"fused_sa {what}: shape")
+        diff = float((got - want).abs().max())
+        err = max(err, diff)
+        check(torch.allclose(got, want, rtol=FUSED_TOL, atol=FUSED_TOL),
+              f"fused_sa {what}: differs from its plain version (max {diff})")
+        rows, tile_c, nbytes = launch_plan(P, ks, widths)
+        log(f"  fused_sa {what} B={B} N={N} P={P} S={S} ks={ks} ({rows} rows, {tile_c} centroids "
+            f"a block, {nbytes} B shared): selection exact, features max abs diff {diff:.3g}")
+        return got
+
     for what, B, N, S, radii, ks, widths, P, offset in cases:
         xyz8 = torch.from_numpy(unit_clouds(rng, B, N)).to(device)
         feats = np.abs(rng.standard_normal((B, N, P - 3))).astype(np.float32)
@@ -386,22 +412,7 @@ def fused_sa_phase(device, executors, xyz) -> dict:
                             0.1 * rng.standard_normal(cout)]
                 cin = cout
         weights = [torch.from_numpy(w.astype(np.float32)).to(device) for w in weights]
-        idx = torch.empty((B, S, sum(ks)), dtype=torch.int32, device=device)
-        got = fused_sa_infer(pts, cent, weights, radii, ks, widths, idx_out=idx)
-        torch.cuda.synchronize()
-        check(torch.equal(idx, ball_query_reference(pts[..., :3], cent, radii, ks)),
-              f"fused_sa {what}: selection differs from ball_query_reference")
-        if offset:
-            check(bool((idx == N - 1).all()), "fused_sa empty balls: selection is not N-1")
-        want = fused_sa_reference(pts, cent, weights, radii, ks, widths)
-        check(got.shape == want.shape and bool(torch.isfinite(got).all()), f"fused_sa {what}: shape")
-        diff = float((got - want).abs().max())
-        err = max(err, diff)
-        check(torch.allclose(got, want, rtol=FUSED_TOL, atol=FUSED_TOL),
-              f"fused_sa {what}: differs from its plain version (max {diff})")
-        rows, tile_c, nbytes = launch_plan(P, ks, widths, (B, S, sms))
-        log(f"  fused_sa {what} B={B} N={N} P={P} S={S} ks={ks} ({rows} rows, {tile_c} centroids "
-            f"a block, {nbytes} B shared): selection exact, features max abs diff {diff:.3g}")
+        compare(what, pts, cent, weights, radii, ks, widths, empty=bool(offset))
 
     shapes = []
     for ex in executors:
@@ -411,6 +422,7 @@ def fused_sa_phase(device, executors, xyz) -> dict:
             weights = [w.to(device) for w in weights]
             cent = index_points(p, fps(p, S)).contiguous()
             args = (ptsfeat, cent, weights, radii, ks, widths)
+            f = compare(f"path call {ex} SA{i + 1}", *args)
             bound, by = fused_sa_bound_ms(ptsfeat, cent, radii, ks, widths)
             tc_bound = fused_sa_tc_bound_ms(ptsfeat, cent, ks, widths)
             ms = cuda_ms(lambda: fused_sa_infer(*args), 10)
@@ -420,7 +432,6 @@ def fused_sa_phase(device, executors, xyz) -> dict:
             shapes.append({"call": f"{ex} SA{i + 1}", "shape": [*ptsfeat.shape, S, *ks],
                            "ms": ms, "plain_ms": cuda_ms(lambda: fused_sa_reference(*args), 3),
                            "bound_ms": bound, "bound_by": by, "tc_bound_ms": tc_bound})
-            f = fused_sa_infer(*args)
             p, ptsfeat = cent, torch.cat([cent, f], dim=-1)
     return kernel_entry("fused_sa", "pointnet_like_pose_estimation_tpu_torch/kernels/csrc/fused_sa.cu",
                         "pointnet_like_pose_estimation_tpu/kernels/fused_sa.py:43", err, shapes,

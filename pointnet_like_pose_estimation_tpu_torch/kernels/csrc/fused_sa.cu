@@ -119,10 +119,7 @@ __host__ __device__ constexpr int act_pitch(int c) { return round_up(c, 8) + 4; 
 
 // A profiling build (-DPLPE_PROFILE, scripts/profile_torch_fused_sa.py)
 // has thread 0 of every block add the cycles it spends in each phase to
-// g_phase_cycles. Two more flags of that script cut work out, with wrong
-// results, to show what the work costs: PLPE_PROFILE_NO_SPLIT passes the
-// operands to the MMAs unsplit, PLPE_PROFILE_ONE_PRODUCT forms one product
-// in place of three. None of this is in the library the port loads.
+// g_phase_cycles. None of this is in the library the port loads.
 #ifdef PLPE_PROFILE
 enum Phase { kSetUp, kSelect, kGather, kLayer0, kRingWait, kProducts, kEpilogue, kStore, kPhases };
 __device__ unsigned long long g_phase_cycles[kPhases];
@@ -141,13 +138,8 @@ __device__ unsigned long long g_phase_cycles[kPhases];
 // hi = x rounded to TF32's 10 mantissa bits (to nearest, ties away from
 // zero), lo = x - hi cut to 10 bits.
 __device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
-#ifdef PLPE_PROFILE_NO_SPLIT
-  hi = __float_as_uint(x);
-  lo = 0u;
-#else
   hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
   lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi))) & 0xffffe000u;
-#endif
 }
 
 // c += a * b for one 16x8 (row-major) by 8x8 (column) TF32 tile. Thread
@@ -447,11 +439,7 @@ fused_sa_kernel(const float* __restrict__ ptsfeat,    // [B, N, P]
               // all of the warp's tiles, so that the three MMAs into one
               // accumulator never wait on each other
 #pragma unroll
-#ifdef PLPE_PROFILE_ONE_PRODUCT
-              for (int term = 2; term < 3; ++term) {
-#else
               for (int term = 0; term < 3; ++term) {
-#endif
 #pragma unroll
                 for (int nt = 0; nt < NT; ++nt) {
                   if (nt < my_nt) {

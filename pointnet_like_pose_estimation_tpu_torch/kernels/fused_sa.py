@@ -37,7 +37,7 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def launch_plan(P: int, ks, layer_widths, grid=None) -> tuple[int, int, int]:
+def launch_plan(P: int, ks, layer_widths) -> tuple[int, int, int]:
     """``(rows, centroids_per_block, shared_bytes)`` of one kernel launch.
 
     A block owns ``centroids_per_block`` centroids and runs a scale's MLP
@@ -48,11 +48,14 @@ def launch_plan(P: int, ks, layer_widths, grid=None) -> tuple[int, int, int]:
     to a multiple of 16 rows, and a block takes as many centroids as fill
     one chunk at the smallest K, times 2 or 4 while its (centroid, scale)
     pairs leave selecting warps idle: the block's set-up is then shared by
-    more chunks. ``grid = (clouds, centroids per cloud, SMs of the card)`` takes
-    that factor back while the launch would have under two blocks an SM.
-    The kernel computes the same shared-memory figure and refuses a launch
-    whose plan differs. Raises ``ValueError`` when even 64 rows do not fit.
+    more chunks. The plan depends on the channels, the neighbour counts and
+    the widths alone, not on the number of clouds or centroids. The kernel
+    computes the same shared-memory figure and refuses a launch whose plan
+    differs. Raises ``ValueError`` for widths off the 8-column MMA tile and
+    when even 64 rows do not fit.
     """
+    if any(c % 8 for ws in layer_widths for c in ws):
+        raise ValueError(f"fused_sa: widths={layer_widths} must be multiples of 8 (MMA tiles)")
     width0, width1 = (4 if P == 3 else P), 0
     for widths in layer_widths:
         for li, c in enumerate(widths[:-1]):
@@ -68,10 +71,6 @@ def launch_plan(P: int, ks, layer_widths, grid=None) -> tuple[int, int, int]:
         groups = 1
         while groups < _MAX_CHUNK_GROUPS and base * groups * len(ks) < _WARPS:
             groups *= 2
-        if grid is not None:
-            clouds, per_cloud, sms = grid
-            while groups > 1 and clouds * -(-per_cloud // (base * groups)) < 2 * sms:
-                groups //= 2
         centroids = base * groups
         nbytes = 4 * (rows * pitches + _RING_FLOATS + centroids * (c_total + 4 + sum(ks)) + biases)
         if nbytes <= MAX_SHARED_BYTES:
@@ -150,13 +149,6 @@ def _validate(ptsfeat, centroids, weights, radii, ks, layer_widths, idx_out):
         raise ValueError(f"fused_sa: bad scales radii={radii} ks={ks} widths={layer_widths}")
     if min(ks) <= 0 or any(not 0 < len(ws) <= MAX_LAYERS or min(ws) <= 0 for ws in layer_widths):
         raise ValueError(f"fused_sa: bad ks={ks} or widths={layer_widths}")
-    if any(c % 8 for ws in layer_widths for c in ws):
-        raise ValueError(f"fused_sa: widths={layer_widths} must be multiples of 8 (MMA tiles)")
-    grid = None
-    if ptsfeat.device.type == "cuda":
-        sms = torch.cuda.get_device_properties(ptsfeat.device).multi_processor_count
-        grid = (B, centroids.shape[1], sms)
-    plan = launch_plan(P, ks, layer_widths, grid)
     shapes = []
     for widths in layer_widths:
         cin = P
@@ -170,15 +162,12 @@ def _validate(ptsfeat, centroids, weights, radii, ks, layer_widths, idx_out):
             raise ValueError("fused_sa: want contiguous float32 tensors on one device")
         if shape is not None and tuple(t.shape) != shape:
             raise ValueError(f"fused_sa: weight {tuple(t.shape)}, want {shape}")
-        if shape is not None and len(shape) == 2 and t.device.type == "cuda" and t.data_ptr() % 16:
-            raise ValueError("fused_sa: want 16-byte aligned weight matrices (asynchronous copies)")
     if idx_out is not None and (
         idx_out.dtype != torch.int32 or not idx_out.is_contiguous()
         or tuple(idx_out.shape) != (B, centroids.shape[1], sum(ks))
         or idx_out.device != ptsfeat.device
     ):
         raise ValueError("fused_sa: idx_out must be a contiguous int32 [B, S, sum(ks)] beside ptsfeat")
-    return plan
 
 
 def fused_sa_infer(
@@ -209,13 +198,17 @@ def fused_sa_infer(
     ks = tuple(int(k) for k in ks)
     layer_widths = tuple(tuple(int(c) for c in ws) for ws in layer_widths)
     weights = tuple(weights)
-    rows, tile, nbytes = _validate(ptsfeat, centroids, weights, radii, ks, layer_widths, idx_out)
+    _validate(ptsfeat, centroids, weights, radii, ks, layer_widths, idx_out)
     if ptsfeat.device.type == "cpu":
         if idx_out is not None:
             idx_out.copy_(ball_query_reference(ptsfeat[..., :3], centroids, radii, ks))
         return fused_sa_reference(ptsfeat, centroids, weights, radii, ks, layer_widths)
 
+    # what only the kernel asks for: its MMA tiles, its shared memory, its 16-byte copies
     B, N, P = ptsfeat.shape
+    rows, tile, nbytes = launch_plan(P, ks, layer_widths)
+    if any(w.dim() == 2 and w.data_ptr() % 16 for w in weights):
+        raise ValueError("fused_sa: want 16-byte aligned weight matrices (asynchronous copies)")
     S = centroids.shape[1]
     out = torch.empty((B, S, sum(ws[-1] for ws in layer_widths)), dtype=torch.float32,
                       device=ptsfeat.device)

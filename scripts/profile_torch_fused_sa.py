@@ -11,11 +11,12 @@ Thread 0's warp is one of sixteen, so a phase's cycles are that warp's
 latency through it, not a sum over warps.
 
 Two more builds cut work out of the MMA loops, with wrong results, to show
-what that work costs: PLPE_PROFILE_NO_SPLIT passes the operands unsplit (no
-split arithmetic), PLPE_PROFILE_ONE_PRODUCT runs one MMA in place of
-three. From the three builds the script solves, for SSG SA2's loops, the
-cycles that the fragment loads, the split arithmetic and one MMA cost a
-scheduler of four warps.
+what that work costs: "no_split" passes the operands unsplit (no split
+arithmetic), "one_product" runs one MMA in place of three. They are built
+from edited copies of the source that this script writes under the build
+directory; the kernel itself carries neither. From the three builds the
+script solves, for SSG SA2's loops, the cycles that the fragment loads, the
+split arithmetic and one MMA cost a scheduler of four warps.
 
 Run on a machine with a card: python3 scripts/profile_torch_fused_sa.py
 """
@@ -23,6 +24,7 @@ Run on a machine with a card: python3 scripts/profile_torch_fused_sa.py
 import ctypes
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -48,9 +50,17 @@ CALLS = {
     "MSG SA2": (512, 320, 128, (0.2, 0.4, 0.8), (32, 64, 128),
                 ((64, 64, 128), (128, 128, 256), (128, 128, 256))),
 }
-BASE_FLAGS = _build.NVCC_FLAGS
-BUILDS = {"full": (), "no_split": ("-DPLPE_PROFILE_NO_SPLIT",),
-          "one_product": ("-DPLPE_PROFILE_ONE_PRODUCT",)}
+# build -> edits (old text, new text) of csrc/fused_sa.cu, each of which must hit once
+BUILDS = {
+    "full": (),
+    "no_split": ((
+        "  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n"
+        "  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi))) & 0xffffe000u;\n",
+        "  hi = __float_as_uint(x);\n  lo = 0u;\n"),),
+    "one_product": (("for (int term = 0; term < 3; ++term) {",
+                     "for (int term = 2; term < 3; ++term) {"),),
+}
+CSRC = _build.CSRC
 
 
 def inputs(rng, N, D, S, widths):
@@ -69,10 +79,23 @@ def inputs(rng, N, D, S, widths):
     return torch.cat([xyz, feats], dim=-1).contiguous(), cent, weights
 
 
-def load_build(flags):
-    """The fused-SA library compiled with the profiling flags, in place of
-    the one the wrapper would load."""
-    _build.NVCC_FLAGS = BASE_FLAGS + ("-DPLPE_PROFILE", *flags)
+def load_build(build, edits):
+    """The fused-SA library compiled with the phase clock from a copy of the
+    sources with ``edits`` applied, in place of the one the wrapper would
+    load."""
+    src = _build.BUILD_DIR / "profile_src" / build
+    src.mkdir(parents=True, exist_ok=True)
+    for source in CSRC.iterdir():
+        shutil.copy(source, src / source.name)
+    text = (CSRC / "fused_sa.cu").read_text()
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise RuntimeError(f"{build}: {old!r} is in fused_sa.cu {text.count(old)} times, want 1")
+        text = text.replace(old, new)
+    (src / "fused_sa.cu").write_text(text)
+    _build.CSRC = src
+    if "-DPLPE_PROFILE" not in _build.NVCC_FLAGS:
+        _build.NVCC_FLAGS += ("-DPLPE_PROFILE",)
     _build._LIBS.pop("fused_sa", None)
     _build._BUILT.pop("fused_sa", None)
     lib = _build.library("fused_sa")
@@ -88,10 +111,9 @@ def main() -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     products = {}
-    for build, flags in BUILDS.items():
-        lib = load_build(flags)
+    for build, edits in BUILDS.items():
+        lib = load_build(build, edits)
         rng = np.random.default_rng(0)
         for call, (N, D, S, radii, ks, widths) in CALLS.items():
             pts, cent, weights = inputs(rng, N, D, S, widths)
@@ -106,7 +128,7 @@ def main() -> int:
             torch.cuda.synchronize()
             cycles = (ctypes.c_ulonglong * len(PHASES))()
             _build.check(lib, lib.plpe_fused_sa_phase_cycles(ctypes.addressof(cycles), 0), "read")
-            rows, tile, _ = launch_plan(3 + D, ks, widths, (CLOUDS, S, sms))
+            rows, tile, _ = launch_plan(3 + D, ks, widths)
             blocks = CLOUDS * -(-S // tile)
             t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             t0.record()

@@ -122,7 +122,7 @@ _MSG_SA2 = ((0.2, 0.4, 0.8), (32, 64, 128), ((64, 64, 128), (128, 128, 256), (12
         (2, 1024, 0, 512, (0.2,), (32,), ((64, 64, 128),), 4.0),
         (2, 1024, 0, 509, *_MSG_SA1, 0.0),                         # S no multiple of 8
         (3, 512, 128, 127, (0.4,), (64,), ((128, 128, 256),), 0.0),
-        (40, 512, 128, 127, (0.4,), (64,), ((128, 128, 256),), 0.0),       # 8 centroids a block
+        (40, 512, 128, 127, (0.4,), (64,), ((128, 128, 256),), 0.0),       # more clouds
         (2, 512, 4, 64, (0.3, 0.5), (20, 50), ((16, 24), (40, 8)), 0.0),   # K no multiple of 8, P = 7
         (1, 256, 0, 3, (0.3,), (20,), ((8,),), 0.0),               # one block, one FMA layer
     ],

@@ -19,6 +19,7 @@ from pointnet_like_pose_estimation_tpu_torch.kernels.ball_group import ball_quer
 from pointnet_like_pose_estimation_tpu_torch.kernels.fused_sa import (
     fused_sa_infer,
     fused_sa_reference,
+    launch_plan,
 )
 from pointnet_like_pose_estimation_tpu_torch.models import build_model
 from pointnet_like_pose_estimation_tpu_torch.models.fast_infer import (
@@ -213,6 +214,12 @@ def _bad(case):
 ])
 def test_fused_sa_validates_arguments(case):
     pts, cent, weights, radii, ks, widths, idx_out = _bad(case)
+    if case == "shared_memory":
+        # the kernel's limit: refused by its launch plan, which a CUDA tensor
+        # passes through before any launch; a CPU tensor takes the plain version
+        with pytest.raises(ValueError, match="fused_sa.*shared memory"):
+            launch_plan(pts.shape[-1], ks, widths)
+        return
     with pytest.raises(ValueError, match="fused_sa"):
         fused_sa_infer(pts, cent, weights, radii, ks, widths, idx_out=idx_out)
 

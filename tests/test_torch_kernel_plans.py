@@ -57,24 +57,23 @@ def test_fused_sa_launch_plan(P, ks, widths, rows, centroids):
 
 
 @pytest.mark.parametrize(
-    "shape,grid,centroids",
-    [
-        (SSG_SA1, (32, 512, 132), 16),    # 1024 blocks: over two an SM, the factor stays
-        (SSG_SA1, (8, 512, 132), 8),      # 256 blocks would be under two an SM
-        (SSG_SA1, (4, 512, 132), 4),
-        (SSG_SA1, (2, 512, 132), 4),      # never under what fills one chunk
-        (SSG_SA2, (32, 128, 132), 8),
-        (SSG_SA2, (8, 127, 132), 2),
-        (MSG_SA2, (1, 128, 132), 2),
-        (MSG_SA1, (1, 512, 132), 8),
-    ],
+    "shape",
+    [SSG_SA1, SSG_SA2, MSG_SA1, MSG_SA2, (7, (20, 50), ((16, 24), (40, 8))),
+     (3, (128,), ((64, 64, 128),)), (11, (16,), ((16, 16, 32),))],
+    ids=["ssg_sa1", "ssg_sa2", "msg_sa1", "msg_sa2", "odd_k", "k128", "cpu_test"],
 )
-def test_fused_sa_plan_keeps_a_small_grid_wide(shape, grid, centroids):
-    """Few clouds: fewer centroids a block, so that the blocks still cover
-    the card; the shared memory stays inside the limit."""
-    rows, got, nbytes = launch_plan(*shape, grid)
-    assert got == centroids and nbytes <= MAX_SHARED_BYTES
-    assert rows == launch_plan(*shape)[0]
+def test_fused_sa_plan_fills_chunks_and_warps(shape):
+    """A block's centroids fill whole chunks at the smallest K, and its
+    (centroid, scale) pairs keep the 16 warps selecting unless that would
+    take more than four chunks of the smallest K."""
+    _, ks, _ = shape
+    rows, centroids, _ = launch_plan(*shape)
+    kp_min = min(-(-k // 16) * 16 for k in ks)
+    base = max(1, rows // kp_min)
+    assert centroids % base == 0 and centroids // base in (1, 2, 4)
+    assert centroids * len(ks) >= fused_sa._WARPS or centroids == 4 * base
+    # three threads a centroid load the centroids: the kernel's own limit
+    assert 3 * centroids <= 32 * fused_sa._WARPS
 
 
 def test_fused_sa_plan_is_the_same_for_a_ragged_last_tile():
@@ -95,10 +94,44 @@ def test_fused_sa_plan_refuses_what_cannot_fit(P, ks, widths):
 
 
 def test_fused_sa_refuses_widths_off_the_mma_tile():
-    pts = torch.zeros((1, 16, 3))
-    weights = [torch.zeros((3, 12)), torch.zeros(12)]
     with pytest.raises(ValueError, match="multiples of 8"):
-        fused_sa.fused_sa_infer(pts, pts[:, :4], weights, (0.1,), (4,), ((12,),))
+        launch_plan(3, (4,), ((12,),))
+
+
+def _cpu_case(P, ks, widths, N=24, S=5, B=2, seed=0):
+    rng = np.random.default_rng(seed)
+    pts = torch.from_numpy(rng.uniform(-1, 1, (B, N, P)).astype(np.float32))
+    weights = []
+    for ws in widths:
+        cin = P
+        for cout in ws:
+            weights += [rng.standard_normal((cin, cout)) / np.sqrt(cin), 0.1 * rng.standard_normal(cout)]
+            cin = cout
+    weights = [torch.from_numpy(w.astype(np.float32)) for w in weights]
+    return pts, pts[:, :S, :3].contiguous(), weights, tuple(0.6 + 0.2 * i for i in range(len(ks))), ks, widths
+
+
+@pytest.mark.parametrize(
+    "P,ks,widths,refusal",
+    [
+        (3, (4,), ((12,),), "multiples of 8"),
+        (5, (3, 6), ((5, 7), (9,)), "multiples of 8"),
+        (1700, (8,), ((8, 16),), "shared memory"),
+        (323, (4,), ((512, 512, 512),), "shared memory"),
+    ],
+    ids=["width_12", "odd_widths", "wide_rows", "wide_layers"],
+)
+def test_fused_sa_cpu_tensor_takes_what_only_the_kernel_refuses(P, ks, widths, refusal):
+    """The MMA-tile and shared-memory limits are the CUDA kernel's: a CPU
+    tensor takes the plain version whatever the widths."""
+    with pytest.raises(ValueError, match=refusal):
+        launch_plan(P, ks, widths)
+    args = _cpu_case(P, ks, widths)
+    idx = torch.empty((2, 5, sum(ks)), dtype=torch.int32)
+    got = fused_sa.fused_sa_infer(*args, idx_out=idx)
+    assert got.shape == (2, 5, sum(ws[-1] for ws in widths))
+    assert torch.equal(got, fused_sa.fused_sa_reference(*args))
+    assert torch.equal(idx, fused_sa.ball_query_reference(args[0][..., :3], args[1], args[3], ks))
 
 
 def _constant(source: str, name: str) -> int:
