@@ -8,10 +8,16 @@ Phases, any failure exits non-zero:
 1. the card, as nvidia-smi and torch report it;
 2. build every CUDA kernel from csrc/ (nvcc, sm_90a);
 3. each kernel against its plain PyTorch version on the card, on seeded
-   clouds, with exact integer equality (FPS on its register path and, with
-   N = 5000 and with C = 6, on its shared-memory path), and its time (CUDA
-   events) at the shapes one request of 32 clusters of 2048 points gives
-   it, for FPS also in microseconds per step;
+   clouds, with exact integer equality: FPS on its register path and, with
+   N = 5000, C = 6 and C = 10, on its shared-memory path; the ball query at
+   3, 7 and 10 channels, one to five scales, N and S off the tile sizes, a
+   cloud too large for shared memory and empty balls. Then its time at the
+   shapes one request of 32 clusters of 2048 points gives it, for the ball
+   query also at the MSG levels and at the 10 spliced channels of a pose
+   head, for FPS also in microseconds per step. A kernel's time is the
+   device time of a call (launches captured in a CUDA graph and replayed
+   between two events), beside its bound; for the ball query the time of a
+   call launched from Python in a loop stands beside it;
 4. serve requests through GraspPipeline.from_checkpoints on the five
    committed checkpoints: the replay clusters of tests/fixtures and two
    seeded batches (M > 1024 and M < 1024). The launch counts must show
@@ -37,6 +43,13 @@ Phases, any failure exits non-zero:
    on the card and the executors on the CPU (pred equal, log_probs within
    TOL), the replay classes against the recorded JAX ones. Then latency
    and peak device memory of executor and unfused model at B = 32 and 256.
+
+7. the evaluation path (data/dataset.py build_dataset, train/loop.py
+   evaluate): a seeded dataset built on the card, then every model of
+   EVAL_MODELS evaluated at batch 24 and full width, from the committed
+   checkpoints or seeded weights, with the launch counts checked and the
+   results held against the same code on the CPU; a request through a
+   pipeline with the MSG classifier; eval throughput per model.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -74,6 +87,9 @@ MMA_TOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
+# (radii, ks) of the set-abstraction levels of the SSG and MSG models
+SSG_SA1, SSG_SA2 = ((0.2,), (32,)), ((0.4,), (64,))
+MSG_SA1, MSG_SA2 = ((0.1, 0.2, 0.4), (16, 32, 128)), ((0.2, 0.4, 0.8), (32, 64, 128))
 
 
 class SmokeFailure(RuntimeError):
@@ -103,6 +119,19 @@ def unit_clouds(rng, B, N):
     return x / np.linalg.norm(x, axis=-1).max(axis=1)[:, None, None]
 
 
+def spliced_clouds(rng, B, N, P):
+    """Unit clouds; for P > 3 a one-hot class, one per cloud, on the
+    channels after the coordinates, as the pose heads see them."""
+    import torch
+
+    x = unit_clouds(rng, B, N)
+    if P > 3:
+        onehot = np.zeros((B, N, P - 3), np.float32)
+        onehot[np.arange(B), :, rng.integers(0, P - 3, B)] = 1.0
+        x = np.concatenate([x, onehot], axis=-1)
+    return torch.from_numpy(x)
+
+
 def cuda_ms(fn, reps: int) -> float:
     import torch
 
@@ -117,6 +146,29 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cuda_graph_ms(fn, reps: int) -> float:
+    """Device time of one call of a kernel wrapper: ``reps`` calls captured
+    in one CUDA graph and replayed between two events, so that the host's
+    time to enqueue a launch (tens of microseconds through Python) does not
+    hide a kernel that takes less."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def fps_bound_ms(B, N, C, S):
     nbytes = 4 * (B * N * C + B + B * S)
     ops = B * S * N * (3 * C + 1)                 # sub, mul, add per channel; min
@@ -124,30 +176,35 @@ def fps_bound_ms(B, N, C, S):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def scanned_points(points, centroids, radii, ks) -> int:
+def scanned_points(points, centroids, radii, ks, one_pass: bool = False) -> int:
     """Points a ball scan in index order visits on this data: up to the
-    K-th in-ball point, or all N, per centroid and scale."""
+    K-th in-ball point, or all N, per centroid and scale. With ``one_pass``
+    one scan serves every scale of a centroid, so it needs the largest of
+    the scales' counts, not their sum."""
     import torch
 
     from pointnet_like_pose_estimation_tpu_torch.ops import square_distance
 
     N = points.shape[1]
     d2 = square_distance(centroids, points)
-    scanned = 0
+    per_scale = []
     for r, k in zip(radii, ks):
         r2 = float(np.float32(r * r))
         count = torch.cumsum((d2 <= r2).int(), dim=-1)
-        scanned += int(torch.clamp((count < k).sum(-1) + 1, max=N).sum())
-    return scanned
+        per_scale.append(torch.clamp((count < k).sum(-1) + 1, max=N))
+    per_scale = torch.stack(per_scale)
+    return int(per_scale.amax(0).sum() if one_pass else per_scale.sum())
 
 
 def ball_query_bound_ms(points, centroids, radii, ks):
     """Bytes: points, centroids and indices once. Operations: (3P+3) per
-    point the scan of this data needs, up to the K-th in-ball point."""
+    point the scan of this data needs; one scan serves all scales, so per
+    centroid that is up to the K-th in-ball point of the scale that needs
+    the most."""
     B, N, P = points.shape
     S = centroids.shape[1]
     nbytes = 4 * (B * N * P + B * S * P + B * S * sum(ks))
-    ops = scanned_points(points, centroids, radii, ks) * (3 * P + 3)
+    ops = scanned_points(points, centroids, radii, ks, one_pass=True) * (3 * P + 3)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -191,6 +248,35 @@ def fused_sa_tc_bound_ms(ptsfeat, centroids, ks, layer_widths) -> float:
     return 1e3 * 3 * B * centroids.shape[1] * per_cloud / TF32_FLOP_PER_S
 
 
+def path_calls(rng, device):
+    """The FPS and ball-query calls that are timed: the launches of one
+    request of 32 clusters of 2048 points, the MSG levels on the same
+    clouds, and SA1 of a pose head on the clouds spliced with a one-hot
+    class (10 channels). Returns ``(fps_calls, ball_query_calls)``."""
+    import torch
+
+    from pointnet_like_pose_estimation_tpu_torch.data.augment import splice_onehot
+    from pointnet_like_pose_estimation_tpu_torch.kernels.fps import fps
+    from pointnet_like_pose_estimation_tpu_torch.ops import index_points, normalize_cloud
+
+    raw = torch.from_numpy(
+        (rng.uniform(-0.5, 0.5, (32, 1, 3)) + 0.05 * rng.standard_normal((32, 2048, 3)))
+        .astype(np.float32)).to(device)
+    xyz = normalize_cloud(index_points(raw, fps(raw, 1024)))
+    c1 = index_points(xyz, fps(xyz, 512))
+    c2 = index_points(c1, fps(c1, 128))
+    labels = torch.from_numpy(rng.integers(0, 7, 32)).to(device)
+    xyz10 = splice_onehot(xyz, labels, 7)
+    c10 = index_points(xyz10, fps(xyz10, 512))
+    fps_calls = [("resample", raw, 1024), ("SA1", xyz, 512), ("SA2", c1, 128),
+                 ("head SA1, C = 10", xyz10, 512)]
+    bq_calls = [("SSG SA1", xyz, c1, *SSG_SA1), ("SSG SA2", c1, c2, *SSG_SA2),
+                ("MSG SA1", xyz, c1, *MSG_SA1), ("MSG SA2", c1, c2, *MSG_SA2),
+                ("head SA1, P = 10, SSG scale", xyz10, c10, *SSG_SA1),
+                ("head SA1, P = 10, MSG scales", xyz10, c10, *MSG_SA1)]
+    return fps_calls, bq_calls
+
+
 def kernel_phase(device) -> list[dict]:
     """Exactness at the path, MSG and empty-ball shapes; times at the
     shapes of one request of 32 clusters of 2048 points."""
@@ -198,10 +284,11 @@ def kernel_phase(device) -> list[dict]:
 
     from pointnet_like_pose_estimation_tpu_torch.kernels.ball_group import (
         ball_query_multi,
+        ball_query_plan,
         ball_query_reference,
     )
     from pointnet_like_pose_estimation_tpu_torch.kernels.fps import fps, fps_plan, fps_reference
-    from pointnet_like_pose_estimation_tpu_torch.ops import index_points, normalize_cloud
+    from pointnet_like_pose_estimation_tpu_torch.ops import index_points
 
     rng = np.random.default_rng(0)
     err = {"fps": 0.0, "ball_query": 0.0}
@@ -217,7 +304,7 @@ def kernel_phase(device) -> list[dict]:
     # the last two take the kernel's shared-memory path (N above the register path, C != 3)
     for B, N, C, S, start in [(8, 1024, 3, 512, 0), (8, 512, 3, 128, 0), (8, 2048, 3, 1024, 0),
                               (8, 4096, 3, 1024, "per-cloud"), (4, 5000, 3, 512, "per-cloud"),
-                              (4, 1000, 6, 256, 0)]:
+                              (4, 1000, 6, 256, 0), (4, 1024, 10, 512, 0)]:
         pts = torch.from_numpy(np.concatenate(
             [unit_clouds(rng, B, N), rng.standard_normal((B, N, C - 3)).astype(np.float32)], -1)
         ).to(device)
@@ -225,55 +312,63 @@ def kernel_phase(device) -> list[dict]:
         same("fps", fps(pts, S, st), fps_reference(pts, S, st),
              f"B={B} N={N} C={C} S={S} start={'per-cloud' if start else 0} plan={fps_plan(N, C)}")
 
+    # what, B, N, P, S, radii, ks, empty; the one-hot channels of P = 10 differ per cloud
     cases = [
-        ("SA1", 8, 1024, 512, (0.2,), (32,), False),
-        ("SA2", 8, 512, 128, (0.4,), (64,), False),
-        ("MSG SA1", 8, 1024, 512, (0.1, 0.2, 0.4), (16, 32, 128), False),
-        ("empty balls", 8, 1024, 512, (0.2,), (32,), True),
+        ("SA1", 8, 1024, 3, 512, SSG_SA1[0], SSG_SA1[1], False),
+        ("SA2", 8, 512, 3, 128, SSG_SA2[0], SSG_SA2[1], False),
+        ("MSG SA1", 8, 1024, 3, 512, MSG_SA1[0], MSG_SA1[1], False),
+        ("MSG SA2", 8, 512, 3, 128, MSG_SA2[0], MSG_SA2[1], False),
+        ("P = 10, SSG scale", 8, 1024, 10, 512, SSG_SA1[0], SSG_SA1[1], False),
+        ("P = 10, MSG scales", 8, 1024, 10, 512, MSG_SA1[0], MSG_SA1[1], False),
+        ("P = 7 (any-P instance), two scales", 4, 300, 7, 77, (0.3, 0.6), (8, 24), False),
+        ("five scales", 2, 512, 3, 64, (0.1, 0.2, 0.3, 0.4, 0.5), (4, 8, 16, 32, 64), False),
+        ("N = 1000", 8, 1000, 3, 512, MSG_SA1[0], MSG_SA1[1], False),
+        ("ragged S = 100", 8, 1024, 3, 100, SSG_SA1[0], SSG_SA1[1], False),
+        ("cloud above shared memory", 2, 40000, 3, 64, (0.05, 0.1), (16, 32), False),
+        ("600 neighbours, one thread a centroid", 2, 4096, 3, 40, (0.3,), (600,), False),
+        ("empty balls", 8, 1024, 3, 512, SSG_SA1[0], SSG_SA1[1], True),
+        ("empty balls, three scales", 8, 1024, 3, 512, MSG_SA1[0], MSG_SA1[1], True),
     ]
-    for what, B, N, S, radii, ks, empty in cases:
-        pts = torch.from_numpy(unit_clouds(rng, B, N)).to(device)
+    for what, B, N, P, S, radii, ks, empty in cases:
+        pts = spliced_clouds(rng, B, N, P).to(device)
         idx = torch.from_numpy(np.stack([rng.permutation(N)[:S] for _ in range(B)])).to(device)
         cent = index_points(pts, idx) + (4.0 if empty else 0.0)
         got = ball_query_multi(pts, cent, radii, ks)
         same("ball_query", got, ball_query_reference(pts, cent, radii, ks),
-             f"{what} N={N} S={S} radii={radii} ks={ks}")
+             f"{what} N={N} P={P} S={S} radii={radii} ks={ks} plan={tuple(ball_query_plan(N, P, ks))}")
         if empty:
             check(bool((got == N - 1).all()), "empty balls: output is not N-1")
 
-    # the five launches of one request of K=32 clusters of M=2048 points
-    raw = torch.from_numpy(
-        (rng.uniform(-0.5, 0.5, (32, 1, 3)) + 0.05 * rng.standard_normal((32, 2048, 3)))
-        .astype(np.float32)).to(device)
-    xyz = normalize_cloud(index_points(raw, fps(raw, 1024)))
-    c1 = index_points(xyz, fps(xyz, 512))
-    c2 = index_points(c1, fps(c1, 128))
-    fps_calls = [("resample", raw, 1024), ("SA1", xyz, 512), ("SA2", c1, 128)]
-    bq_calls = [("SA1", xyz, c1, (0.2,), (32,)), ("SA2", c1, c2, (0.4,), (64,))]
+    fps_calls, bq_calls = path_calls(rng, device)
 
     entries = []
     shapes = []
     for what, pts, S in fps_calls:
         B, N, C = pts.shape
         bound, by = fps_bound_ms(B, N, C, S)
-        ms = cuda_ms(lambda: fps(pts, S), 20)
+        ms = cuda_graph_ms(lambda: fps(pts, S), 10)
         shapes.append({"call": what, "shape": [B, N, C, S], "ms": ms,
-                       "plain_ms": cuda_ms(lambda: fps_reference(pts, S), 2),
+                       "plain_ms": cuda_ms(lambda: fps_reference(pts, S), 1),
                        "bound_ms": bound, "bound_by": by, "us_per_step": 1e3 * ms / S})
     entries.append(("fps", "pointnet_like_pose_estimation_tpu_torch/kernels/csrc/fps.cu",
-                    "pointnet_like_pose_estimation_tpu/kernels/fps.py:35", shapes))
+                    "pointnet_like_pose_estimation_tpu/kernels/fps.py:35", shapes,
+                    "32 clusters x 2048 points, and the SA1 call of a head on the spliced cloud"))
     shapes = []
     for what, pts, cent, radii, ks in bq_calls:
         bound, by = ball_query_bound_ms(pts, cent, radii, ks)
-        shapes.append({"call": what, "shape": [*pts.shape, cent.shape[1], *ks],
-                       "ms": cuda_ms(lambda: ball_query_multi(pts, cent, radii, ks), 20),
-                       "plain_ms": cuda_ms(lambda: ball_query_reference(pts, cent, radii, ks), 5),
+        ms = cuda_graph_ms(lambda: ball_query_multi(pts, cent, radii, ks), 20)
+        host_ms = cuda_ms(lambda: ball_query_multi(pts, cent, radii, ks), 50)
+        check(ms >= bound, f"ball_query {what}: {ms} ms reads over 100% of its bound {bound} ms")
+        shapes.append({"call": what, "shape": [*pts.shape, cent.shape[1], *ks], "ms": ms,
+                       "ms_with_host_enqueue": host_ms,
+                       "plain_ms": cuda_ms(lambda: ball_query_reference(pts, cent, radii, ks), 3),
                        "bound_ms": bound, "bound_by": by})
     entries.append(("ball_query", "pointnet_like_pose_estimation_tpu_torch/kernels/csrc/ball_group.cu",
-                    "pointnet_like_pose_estimation_tpu/kernels/ball_group.py:44", shapes))
+                    "pointnet_like_pose_estimation_tpu/kernels/ball_group.py:44", shapes,
+                    "one call at each of the six shapes, 32 clouds"))
 
-    return [kernel_entry(name, source, replaces, err[name], shapes, "32 clusters x 2048 points")
-            for name, source, replaces, shapes in entries]
+    return [kernel_entry(name, source, replaces, err[name], shapes, per)
+            for name, source, replaces, shapes, per in entries]
 
 
 def kernel_entry(name, source, replaces, err, shapes, per_request_of) -> dict:
@@ -281,6 +376,8 @@ def kernel_entry(name, source, replaces, err, shapes, per_request_of) -> dict:
     the calls of one request; ``launches`` is filled in by the path runs."""
     for s in shapes:
         extra = f", {s['us_per_step']:.4f} us/step" if "us_per_step" in s else ""
+        if "ms_with_host_enqueue" in s:
+            extra = f", {s['ms_with_host_enqueue']:.4f} ms a call launched from Python in a loop"
         if "tc_bound_ms" in s:
             extra = (f" = {100 * s['bound_ms'] / s['ms']:.1f}% of the f32 bound, tensor-core bound "
                      f"{s['tc_bound_ms']:.6f} ms = {100 * s['tc_bound_ms'] / s['ms']:.1f}%")
@@ -305,19 +402,22 @@ def blobs(rng, K, M):
             + 0.05 * rng.standard_normal((K, M, 3))).astype(np.float32)
 
 
-def seeded_msg():
-    """pointnet2_cls_msg with weights drawn from a torch.Generator and
-    nontrivial BatchNorm statistics and affine parameters, so that folding
-    BN into the weights is exercised."""
+def seeded_model(name: str, seed: int):
+    """A registry model with weights drawn from a torch.Generator and
+    nontrivial BatchNorm statistics and affine parameters, so that eval-mode
+    BN (and folding it into the weights) is exercised. A T-Net's output
+    layer is the identity plus small noise, so that its transform is
+    neither trivial nor wild."""
     import math
 
     import torch
     from torch import nn
 
     from pointnet_like_pose_estimation_tpu_torch.models import build_model
+    from pointnet_like_pose_estimation_tpu_torch.nn import TNet
 
-    gen = torch.Generator().manual_seed(5)
-    model = build_model("pointnet2_cls_msg")
+    gen = torch.Generator().manual_seed(seed)
+    model = build_model(name)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, nn.Linear):
@@ -328,6 +428,10 @@ def seeded_msg():
                 m.bias.normal_(0.0, 0.2, generator=gen)
                 m.running_mean.normal_(0.0, 0.3, generator=gen)
                 m.running_var.uniform_(0.5, 2.0, generator=gen)
+        for m in model.modules():
+            if isinstance(m, TNet):
+                m.reset_identity()
+                m.out.weight.normal_(0.0, 0.02, generator=gen)
     return model.eval()
 
 
@@ -599,6 +703,164 @@ def serving_phase(pipe, cpu, kernels: list[dict]) -> dict:
     return latency
 
 
+# model -> (experiment directory under log/ or None for seeded weights, FPS and
+# ball-query launches per batch: one each per set-abstraction level that samples)
+EVAL_MODELS = {
+    "pointnet2_cls_ssg": ("classification/r3_pointnet2_cls_ssg", 2),
+    "sign_msg": ("pose/r5_sign_msg", 1),
+    "translation_msg": ("pose/r5_translation_msg_bf16", 1),
+    "rotation": ("pose/r3_rotation", 0),
+    "sign": ("pose/r3_sign", 0),
+    "translation": ("pose/r3_translation_ref", 0),
+    "width": ("pose/r3_width_ref", 0),
+    "rotation_ssg": (None, 2),
+    "rotation_msg": (None, 2),
+    "pointnet_cls": (None, 0),
+    "pointnet2_cls_msg": (None, 2),
+    "pose_feat_trans": (None, 0),
+    "pose_classify": (None, 0),
+}
+EVAL_BATCH = 24
+
+
+def eval_phase(device, kernels: list[dict]) -> dict:
+    """The evaluation path: a seeded dataset built on the card by
+    ``build_dataset`` (80 clouds a class, so 140 test clouds), then
+    ``evaluate`` at the checkpoints' batch size of 24 and full width for
+    every model of EVAL_MODELS: the committed checkpoints, and seeded
+    weights with nontrivial BatchNorm where the repository has none. Each
+    ``evaluate`` must launch FPS and the ball query once per batch and
+    sampling level. Each model is held against the same code on the CPU
+    over 48 test clouds spread over the classes: per-cloud predictions
+    within TOL, classes equal, hard signs equal wherever the probability is
+    more than 1e-4 from 0.5, every figure of ``evaluate`` within TOL
+    relative. Then a request through a pipeline whose classifier is
+    ``pointnet2_cls_msg`` on seeded weights against the CPU pipeline, and
+    the eval throughput per model (median of 5 passes after a warm-up)."""
+    import torch
+
+    from pointnet_like_pose_estimation_tpu_torch.data import PoseDataset, build_dataset, load_dataset
+    from pointnet_like_pose_estimation_tpu_torch.kernels.ball_group import ball_query_multi
+    from pointnet_like_pose_estimation_tpu_torch.kernels.fps import fps
+    from pointnet_like_pose_estimation_tpu_torch.models import build_model, get_model_spec
+    from pointnet_like_pose_estimation_tpu_torch.pipeline import GraspPipeline, PipelineConfig
+    from pointnet_like_pose_estimation_tpu_torch.train import (
+        TrainConfig,
+        evaluate,
+        load_checkpoint,
+        make_eval_step,
+    )
+    from pointnet_like_pose_estimation_tpu_torch.train.loop import _device_eval_batches
+
+    t0 = time.perf_counter()
+    f0 = fps.launches
+    fields = build_dataset(80, seed=0)                                        # default: cuda
+    test = load_dataset(fields, "test")
+    check(len(test) >= 140 and test.points.shape[1:] == (1024, 3), f"test split {test.points.shape}")
+    check(fps.launches > f0, "build_dataset did not launch the FPS kernel")
+    log(f"  dataset: {len(fields['labels'])} clouds built in {time.perf_counter() - t0:.1f} s "
+        f"({fps.launches - f0} FPS launches), {len(test)} test clouds")
+    pick = np.linspace(0, len(test) - 1, 48).astype(int)
+    subset = PoseDataset(**{k: getattr(test, k)[pick] for k in
+                            ("points", "labels", "rot", "tran", "sign", "width")})
+    batches = -(-len(test) // EVAL_BATCH)
+
+    def predictions(spec, cfg, model, dev):
+        step = make_eval_step(spec, cfg)
+        outs = [step(model, b) for b in _device_eval_batches(subset, EVAL_BATCH, dev)]
+        return {k: torch.cat([o[k] for o in outs]).cpu() for k in ("pred", "prob") if k in outs[0]}
+
+    results, launches = {}, {"fps": 0, "ball_query": 0}
+    fps.launches = ball_query_multi.launches = 0
+    for i, (name, (experiment, per_batch)) in enumerate(EVAL_MODELS.items()):
+        spec = get_model_spec(name)
+        cfg = TrainConfig.for_model(name, batch_size=EVAL_BATCH)
+        if experiment is None:
+            model, meta = seeded_model(name, 20 + i), None
+        else:
+            model, meta = load_checkpoint(
+                os.path.join(ROOT, "log", experiment, "checkpoints", "best.msgpack"),
+                build_model(name))
+        cpu_model = copy.deepcopy(model)
+        before = (fps.launches, ball_query_multi.launches)
+        res = evaluate(cfg, model, test)                                      # default: cuda
+        torch.cuda.synchronize()
+        got = (fps.launches - before[0], ball_query_multi.launches - before[1])
+        check(got == (per_batch * batches,) * 2,
+              f"{name}: fps/ball_query launches {got} per evaluate, want {per_batch * batches} each")
+        launches["fps"] += got[0]
+        launches["ball_query"] += got[1]
+        check(all(np.isfinite(np.asarray(v, np.float64)).all() for v in res.values()),
+              f"{name}: non-finite result {res}")
+
+        on_card = evaluate(cfg, model, subset)
+        on_cpu = evaluate(cfg, cpu_model, subset, device="cpu")
+        check(set(on_card) == set(on_cpu), f"{name}: result keys differ")
+        for key, want in on_cpu.items():
+            check(np.allclose(on_card[key], want, rtol=TOL, atol=TOL),
+                  f"{name}: {key} on the card {on_card[key]} differs from the CPU {want}")
+        p_card, p_cpu = predictions(spec, cfg, model, device), predictions(spec, cfg, cpu_model, "cpu")
+        if spec.task == "classify":
+            check(torch.equal(p_card["pred"], p_cpu["pred"]), f"{name}: classes differ from the CPU")
+        elif spec.task == "sign":
+            check(torch.allclose(p_card["prob"], p_cpu["prob"], rtol=TOL, atol=TOL),
+                  f"{name}: probabilities differ from the CPU")
+            sure = (p_cpu["prob"] - 0.5).abs() > 1e-4
+            check(torch.equal(p_card["pred"][sure], p_cpu["pred"][sure]),
+                  f"{name}: hard signs differ from the CPU")
+        else:
+            diff = float((p_card["pred"] - p_cpu["pred"]).abs().max())
+            check(torch.allclose(p_card["pred"], p_cpu["pred"], rtol=TOL, atol=TOL),
+                  f"{name}: predictions differ from the CPU (max {diff})")
+
+        def one_pass():
+            evaluate(cfg, model, test)
+            torch.cuda.synchronize()
+
+        one_pass()
+        times = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            one_pass()
+            times.append(time.perf_counter() - t1)
+        headline = res.get("instance_acc", res.get("mean_err"))
+        results[name] = {
+            "weights": experiment or "seeded", "metric": res["metric"], "headline": headline,
+            "loss": res["loss"], "clouds_per_s": len(test) / statistics.median(times),
+            "fps_and_ball_query_launches_per_batch": per_batch,
+            "checkpoint_metric": None if meta is None else meta["metric"],
+        }
+        log(f"  eval {name} ({experiment or 'seeded weights'}): matches the CPU on 48 clouds; "
+            f"{json.dumps(results[name])}")
+    check(results["pointnet2_cls_ssg"]["headline"] >= 0.95,
+          f"r3 pointnet2_cls_ssg instance accuracy {results['pointnet2_cls_ssg']['headline']} < 0.95")
+    log(f"  sign_msg accuracy {results['sign_msg']['metric']:.4f} on this draw "
+        f"(best.msgpack.json: {results['sign_msg']['checkpoint_metric']:.4f}); translation_msg "
+        f"{results['translation_msg']['headline']:.3f} cm a axis "
+        f"(best.msgpack.json: {results['translation_msg']['checkpoint_metric']:.3f})")
+    check(launches["fps"] > 0 and launches["ball_query"] > 0, "the eval path launched no kernel")
+    for k in kernels:
+        k["launches_by_path"]["eval"] = launches.get(k["name"], 0)
+
+    cfg = PipelineConfig(classifier="pointnet2_cls_msg")
+    pipe = GraspPipeline.from_random(cfg, seed=7)                             # default: cuda
+    cpu = GraspPipeline.from_random(cfg, seed=7, device="cpu")
+    clusters = blobs(np.random.default_rng(6), 4, 1600)
+    before = (fps.launches, ball_query_multi.launches)
+    out = pipe.infer_clusters(clusters)
+    torch.cuda.synchronize()
+    got = (fps.launches - before[0], ball_query_multi.launches - before[1])
+    check(got == (3, 2), f"MSG-classifier request: fps/ball_query launches {got}, want (3, 2)")
+    want = cpu.infer_clusters(clusters)
+    check(np.array_equal(out["pred_class"], want["pred_class"]), "MSG-classifier request: classes")
+    for key in ("log_probs", "rotation_deg", "rotation_matrix", "sign_prob", "translation", "width"):
+        check(np.allclose(out[key], want[key], rtol=TOL, atol=TOL),
+              f"MSG-classifier request: {key} differs from the CPU pipeline")
+    log(f"  request with classifier=pointnet2_cls_msg (seeded weights): matches the CPU pipeline, "
+        f"classes {out['pred_class'].tolist()}")
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -645,7 +907,7 @@ def main() -> int:
     latency = serving_phase(pipe, cpu, kernels)
 
     log("fused set-abstraction kernel phase")
-    msg_cpu = seeded_msg()
+    msg_cpu = seeded_model("pointnet2_cls_msg", 5)
     msg = copy.deepcopy(msg_cpu).to(device)
     # name -> (executor on the card, the same on the CPU, the unfused model on the card)
     executors = {
@@ -659,8 +921,12 @@ def main() -> int:
     log("fast-infer phase")
     latency.update(fast_infer_phase(pipe, executors, kernels))
 
+    log("eval phase")
+    evals = eval_phase(device, kernels)
+
     log(card)
-    print(json.dumps({"kernels": kernels, "latency": latency, "card": card}), flush=True)
+    print(json.dumps({"kernels": kernels, "latency": latency, "eval": evals, "card": card}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -10,6 +10,7 @@ raises. The kernel's design and what bounds it are noted in the source.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -19,6 +20,66 @@ from pointnet_like_pose_estimation_tpu_torch.ops.geometry import square_distance
 
 MAX_SCALES = 8
 MAX_CHANNELS = 32
+# what csrc/ball_group.cu takes (kernel constants mirrored below)
+MAX_SHARED_BYTES = 227 * 1024
+# (centroids a block, threads a centroid), in the order they are tried
+_TILE_AND_SPLIT = ((64, 4), (128, 2), (64, 2), (128, 1), (64, 1), (32, 1))
+_SPLIT_MAX_INDICES = 64             # kSplitMaxIndices: sum(ks) up to which four threads share a centroid
+_STEP_BY_CHANNELS = {3: 16, 10: 16}  # PLPE_BQ_STEP_P3, PLPE_BQ_STEP_P10
+_STEP_ANY = 2                       # PLPE_BQ_STEP_ANY
+
+
+class BallQueryPlan(NamedTuple):
+    """One launch of the ball-query kernel."""
+
+    tile: int          # centroids a block
+    split: int         # threads that share a centroid, each scanning a part of the points
+    step: int          # points whose loads and distances are formed together
+    held: int          # scales the kernel holds in registers: 1, 3 or MAX_SCALES
+    cloud_bytes: int   # the staged cloud; 0 takes the kernel's global path
+    shared_bytes: int  # the staged cloud, the index segments and the parts' counts
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def ball_query_plan(N: int, P: int, ks) -> BallQueryPlan:
+    """Launch plan of ``csrc/ball_group.cu`` for clouds of N points of P
+    channels queried with ``ks`` neighbours per scale.
+
+    A block stages its cloud in shared memory, each point as ``|p|^2`` and
+    its P channels padded to a multiple of four floats, N rounded up to a
+    whole number of steps: ``16 * ceil((P + 1) / 4) * round_up(N, step)``
+    bytes. Beside it lie one index segment of ``sum(ks)`` ints and ``held``
+    counts for each of the block's ``tile * split`` threads. ``(tile,
+    split)`` is the first of (64, 4), (128, 2), (64, 2), (128, 1), (64, 1),
+    (32, 1) that fits in ``MAX_SHARED_BYTES`` with the cloud, four threads a
+    centroid only while ``sum(ks)`` is at most 64 (more indices, and the
+    segments of a card's worth of blocks no longer fit on its SMs at once);
+    if none fits, the cloud stays in global memory (``cloud_bytes`` 0, the
+    global path of the same kernel) and the first that fits alone is taken.
+    ``step``, the points a thread forms together between two tests whether
+    its warp's balls are full, was picked by measurement
+    (``scripts/tune_torch_ball_query.py``, recorded in PERF.md). The plan
+    depends on the shape alone, not on the number of clouds or centroids.
+    The kernel computes the same figures and refuses a launch whose plan
+    differs. Raises ``ValueError`` when even 32 rows of indices do not fit.
+    """
+    if N <= 0 or not 0 < P <= MAX_CHANNELS or not 0 < len(ks) <= MAX_SCALES or min(ks) <= 0:
+        raise ValueError(f"ball_query: no plan for N={N}, P={P}, ks={tuple(ks)}")
+    step = _STEP_BY_CHANNELS.get(P, _STEP_ANY)
+    held = 1 if len(ks) == 1 else 3 if len(ks) <= 3 else MAX_SCALES
+    staged = 16 * (_round_up(P + 1, 4) // 4) * _round_up(N, step)
+    for cloud in (staged, 0):
+        for tile, split in _TILE_AND_SPLIT:
+            if split == 4 and sum(ks) > _SPLIT_MAX_INDICES:
+                continue
+            nbytes = cloud + 4 * tile * split * (sum(ks) + held)
+            if nbytes <= MAX_SHARED_BYTES:
+                return BallQueryPlan(tile, split, step, held, cloud, nbytes)
+    raise ValueError(f"ball_query: ks={tuple(ks)} exceed the kernel's {MAX_SHARED_BYTES} bytes "
+                     f"of shared memory ({nbytes} for 32 centroids)")
 
 
 def _radius_sq(radius: float) -> float:
@@ -70,6 +131,9 @@ def ball_query_multi(
     if centroids.device != points.device:
         raise ValueError("ball_query: points and centroids on different devices")
     S = centroids.shape[1]
+    if N == 0 or S == 0:
+        raise ValueError(f"ball_query: want N, S > 0, got points {tuple(points.shape)}, S={S}")
+    plan = ball_query_plan(N, P, ks)
     points, centroids = points.contiguous(), centroids.contiguous()
     out = torch.empty((B, S, sum(ks)), dtype=torch.int32, device=points.device)
     r2 = (ctypes.c_float * len(ks))(*[_radius_sq(r) for r in radii])
@@ -77,11 +141,12 @@ def ball_query_multi(
     lib = _build.library("ball_group")
     lib.plpe_ball_query.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-        + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     )
+    lib.plpe_ball_query.restype = ctypes.c_int
     code = lib.plpe_ball_query(
         points.data_ptr(), centroids.data_ptr(), out.data_ptr(), B, N, S, P,
-        ctypes.addressof(r2), ctypes.addressof(kk), len(ks),
+        ctypes.addressof(r2), ctypes.addressof(kk), len(ks), *plan,
         torch.cuda.current_stream(points.device).cuda_stream,
     )
     _build.check(lib, code, "ball_query")

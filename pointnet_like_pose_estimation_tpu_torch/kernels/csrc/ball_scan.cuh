@@ -1,14 +1,15 @@
-// Ball selection by one warp, shared by ball_group.cu and fused_sa.cu so
-// that the ball query and the fused set abstraction pick the same
-// neighbours bit for bit.
+// Ball selection by one warp, used by fused_sa.cu, whose warps select the
+// neighbours of the centroids of a block's tile. The ball query itself
+// (ball_group.cu) scans with one centroid a thread instead; both form d2
+// with the same rounding, so the two pick the same neighbours bit for bit,
+// and both are held against ball_query_reference.
 //
 // The warp scans the points in index order 32 at a time. __ballot_sync on
 // d2 <= r^2 yields the in-ball points of the chunk already in index order,
 // and the scan stops as soon as K of them are found. The distances of
-// kUnroll chunks are formed together, so that their loads overlap; the
-// ballots still go chunk by chunk and stop at K. A caller whose warps have
-// nothing else to hide the loads behind takes kUnroll > 1; a scan that
-// mostly stops early is served best by 1. d2 is
+// kUnroll chunks are formed together, so that their loads overlap (the
+// fused kernel's selecting warps have nothing else to hide them behind);
+// the ballots still go chunk by chunk and stop at K. d2 is
 // (-2*inner + |c|^2) + |p|^2, with inner and both norms summed over the
 // channels in order, every step with __fmul_rn/__fadd_rn so that nothing
 // is contracted into an FMA: the form and order of the PyTorch version
@@ -32,10 +33,10 @@ __device__ __forceinline__ float sq_norm(const float* v, int n) {
 // `nch` channels count. Writes the K lowest in-ball indices to row[0, K):
 // empty slots repeat the first in-ball index, a ball with no point in it
 // is filled with N-1.
-template <int kUnroll = 1>
 __device__ __forceinline__ void ball_scan(const float* __restrict__ cloud, int stride, int N,
                                           const float* cen, int nch, float cc, float r2, int K,
                                           int* row) {
+  constexpr int kUnroll = 4;
   const int lane = threadIdx.x & 31;
   const unsigned lower_lanes = (1u << lane) - 1u;
   int found = 0;

@@ -5,8 +5,9 @@
 //
 // What it computes, for each (cloud b, centroid s) and each radius scale l:
 // select the K_l lowest point indices within r_l of the centroid, on the
-// first 3 channels only (the ball scan of ball_scan.cuh, so the neighbours
-// equal ball_group.cu's bit for bit); gather those rows of ptsfeat
+// first 3 channels only (the ball scan of ball_scan.cuh, which rounds d2
+// as ball_group.cu does, so the neighbours equal the ball query's bit for
+// bit); gather those rows of ptsfeat
 // [B, N, P] and subtract the centroid from their first 3 channels; run the
 // shared MLP relu(x @ W + b) layer by layer, BatchNorm already folded into
 // (W, b); take the max over the K rows. Scale l's features sit at channel
@@ -295,7 +296,7 @@ fused_sa_kernel(const float* __restrict__ ptsfeat,    // [B, N, P]
     const int c = pair / prm.count;
     const Scale& sc = prm.scale[pair - c * prm.count];
     const float* cc = cen + c * 4;
-    plpe::ball_scan<4>(cloud, P, N, cc, 3, plpe::sq_norm(cc, 3), sc.r2, sc.k,
+    plpe::ball_scan(cloud, P, N, cc, 3, plpe::sq_norm(cc, 3), sc.r2, sc.k,
                     sel + c * prm.k_total + sc.k_off);
   }
   __syncthreads();

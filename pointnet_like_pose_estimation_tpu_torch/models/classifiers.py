@@ -1,12 +1,35 @@
-"""PointNet++ SSG and MSG classifiers (counterparts of ``PointNet2ClsSSG``
-and ``PointNet2ClsMSG`` in ``models/classifiers.py`` of the JAX package)."""
+"""PointNet and PointNet++ SSG and MSG classifiers (counterparts of
+``PointNetCls``, ``PointNet2ClsSSG`` and ``PointNet2ClsMSG`` in
+``models/classifiers.py`` of the JAX package)."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from pointnet_like_pose_estimation_tpu_torch.nn import DenseHead, SetAbstraction, SetAbstractionMSG
+from pointnet_like_pose_estimation_tpu_torch.nn import (
+    DenseHead,
+    PointNetEncoder,
+    SetAbstraction,
+    SetAbstractionMSG,
+)
+
+
+class PointNetCls(nn.Module):
+    """PointNet encoder and an FC 512-256-C head on ``[B, N, 3]``.
+
+    Returns ``(log_probs [B, C], feature transform [B, 64, 64], pred [B])``.
+    """
+
+    def __init__(self, num_classes: int = 7):
+        super().__init__()
+        self.encoder = PointNetEncoder(3)
+        self.head = DenseHead(1024, [512, 256, num_classes], style="cls_v1")
+
+    def forward(self, points: torch.Tensor):
+        feat, _, trans_feat = self.encoder(points)
+        log_probs = torch.log_softmax(self.head(feat).float(), dim=-1)
+        return log_probs, trans_feat, torch.argmax(log_probs, dim=-1)
 
 
 class PointNet2ClsSSG(nn.Module):

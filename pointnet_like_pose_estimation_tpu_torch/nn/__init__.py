@@ -2,5 +2,21 @@
 
 from pointnet_like_pose_estimation_tpu_torch.nn.layers import BatchNormF32, DenseHead, PointwiseMLP
 from pointnet_like_pose_estimation_tpu_torch.nn.set_abstraction import SetAbstraction, SetAbstractionMSG
+from pointnet_like_pose_estimation_tpu_torch.nn.tnet import (
+    PointNetEncoder,
+    TNet,
+    apply_transform,
+    orthogonality_regularizer,
+)
 
-__all__ = ["BatchNormF32", "DenseHead", "PointwiseMLP", "SetAbstraction", "SetAbstractionMSG"]
+__all__ = [
+    "BatchNormF32",
+    "DenseHead",
+    "PointwiseMLP",
+    "SetAbstraction",
+    "SetAbstractionMSG",
+    "PointNetEncoder",
+    "TNet",
+    "apply_transform",
+    "orthogonality_regularizer",
+]

@@ -42,10 +42,18 @@ def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def normalize_cloud(points: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
-    """Center each cloud at its centroid and scale it into the unit sphere."""
-    centered = points - points.mean(dim=-2, keepdim=True)
-    scale = torch.sqrt((centered * centered).sum(dim=-1, keepdim=True))
-    return centered / (scale.amax(dim=-2, keepdim=True) + eps)
+    """Center each cloud at its centroid and scale it into the unit sphere.
+
+    The result feeds FPS and the ball query, whose selections turn on the
+    last bit of a distance, so it must come out the same on the CPU and on
+    the card. A float32 sum is taken in another order on each, and a
+    float32 division is not rounded alike on both; so the whole is formed
+    in float64, whose last bits the one rounding to float32 absorbs.
+    """
+    p = points.double()
+    centered = p - p.mean(dim=-2, keepdim=True)
+    scale = torch.sqrt(_dot_last(centered, centered))[..., None]
+    return (centered / (scale.amax(dim=-2, keepdim=True) + eps)).to(points.dtype)
 
 
 def euler_rotation_matrix(angles_rad: torch.Tensor) -> torch.Tensor:

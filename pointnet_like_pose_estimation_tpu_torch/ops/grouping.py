@@ -25,24 +25,35 @@ def sample_and_group(
     num_centroids: int,
     num_neighbors: int,
     radius: float,
+    *,
+    fps_idx: torch.Tensor | None = None,
+    return_fps: bool = False,
 ):
     """FPS centroids -> ball query -> gather -> center on the centroid.
 
-    Returns ``(centroids [B, S, 3], grouped [B, S, K, 3 (+D)])``, the
+    ``points`` is ``[B, N, P]``: all P channels are coordinates (P = 3 for
+    the classifiers, 3 + num_classes for the SSG and MSG pose heads).
+    ``fps_idx`` takes precomputed ``[B, S]`` centroid indices in place of
+    the FPS; ``return_fps`` also returns the indices used.
+
+    Returns ``(centroids [B, S, P], grouped [B, S, K, P (+D)])``, the
     centered coordinates first and the grouped features after them.
     """
-    fps_idx = farthest_point_sample(points, num_centroids)
+    if fps_idx is None:
+        fps_idx = farthest_point_sample(points, num_centroids)
     centroids = index_points(points, fps_idx)
     idx = query_ball_point(radius, num_neighbors, points, centroids)
     grouped = index_points(points, idx) - centroids[:, :, None, :]
     if features is not None:
         grouped = torch.cat([grouped, index_points(features, idx)], dim=-1)
+    if return_fps:
+        return centroids, grouped, fps_idx
     return centroids, grouped
 
 
 def sample_and_group_all(points: torch.Tensor, features: torch.Tensor | None):
     """One group holding the whole cloud, its centroid at the origin:
-    ``(zeros [B, 1, 3], grouped [B, 1, N, 3 (+D)])`` with raw coordinates."""
+    ``(zeros [B, 1, P], grouped [B, 1, N, P (+D)])`` with raw coordinates."""
     B, _, C = points.shape
     centroids = torch.zeros((B, 1, C), dtype=points.dtype, device=points.device)
     grouped = points[:, None]

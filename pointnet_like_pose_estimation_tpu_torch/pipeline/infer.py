@@ -3,8 +3,9 @@
 Counterpart of ``GraspPipeline.infer_clusters`` in ``pipeline/infer.py`` of
 the JAX package. Each request resamples its clusters to ``num_points``
 (FPS when larger, tiling when smaller), normalizes them, classifies them
-with PointNet++ SSG, splices the predicted class as a one-hot onto every
-point, and runs the rotation, sign, translation and width heads.
+with ``PipelineConfig.classifier`` (PointNet++ SSG by default), splices the
+predicted class as a one-hot onto every point, and runs the rotation, sign,
+translation and width heads.
 
 The JAX package pads the cluster count to a multiple of 4 and the cluster
 size to a multiple of 256 so that jit reuses its compiled programs. PyTorch
@@ -23,7 +24,8 @@ import torch
 from torch import nn
 
 from pointnet_like_pose_estimation_tpu_torch.data.augment import splice_onehot
-from pointnet_like_pose_estimation_tpu_torch.models import build_model
+from pointnet_like_pose_estimation_tpu_torch.models import build_model, get_model_spec
+from pointnet_like_pose_estimation_tpu_torch.nn import TNet
 from pointnet_like_pose_estimation_tpu_torch.ops import (
     euler_rotation_matrix,
     farthest_point_sample,
@@ -37,25 +39,30 @@ from pointnet_like_pose_estimation_tpu_torch.utils.checkpoint import (
 from pointnet_like_pose_estimation_tpu_torch.utils.device import resolve_device
 
 MODEL_KEYS = ("classifier", "rotation", "sign", "translation", "width")
-CLASSIFIER = "pointnet2_cls_ssg"
 
 
 @dataclasses.dataclass
 class PipelineConfig:
-    """The serving fields of the JAX package's PipelineConfig (float32,
-    the pointnet2_cls_ssg classifier)."""
+    """The serving fields of the JAX package's PipelineConfig (float32).
+    ``classifier`` is a registry name of task 'classify' on the raw cloud:
+    ``pointnet2_cls_ssg``, ``pointnet2_cls_msg`` or ``pointnet_cls``."""
 
     num_points: int = 1024
     num_classes: int = 7
+    classifier: str = "pointnet2_cls_ssg"
 
 
 def _lecun_normal_(model: nn.Module, generator: torch.Generator) -> None:
-    """flax's default Dense init: truncated normal, variance 1/fan_in, zero bias."""
+    """flax's default Dense init: truncated normal, variance 1/fan_in, zero
+    bias. A TNet's output layer keeps its identity start."""
     for m in model.modules():
         if isinstance(m, nn.Linear):
             std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
             nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
             nn.init.zeros_(m.bias)
+    for m in model.modules():
+        if isinstance(m, TNet):
+            m.reset_identity()
 
 
 class GraspPipeline:
@@ -71,7 +78,12 @@ class GraspPipeline:
 
     @staticmethod
     def _make(cfg: PipelineConfig, key: str) -> nn.Module:
-        return build_model(CLASSIFIER if key == "classifier" else key, cfg.num_classes)
+        if key != "classifier":
+            return build_model(key, cfg.num_classes)
+        spec = get_model_spec(cfg.classifier)
+        if (spec.task, spec.input_kind) != ("classify", "xyz"):
+            raise ValueError(f"PipelineConfig.classifier: {cfg.classifier!r} does not classify raw clouds")
+        return spec.make(cfg.num_classes)
 
     @classmethod
     def from_random(cls, cfg: PipelineConfig | None = None, seed: int = 0, device="cuda"):

@@ -1,11 +1,15 @@
-"""Where a grasp request's time goes on the GPU, for the PyTorch port.
+"""Where a grasp request's and an evaluation pass's time goes on the GPU,
+for the PyTorch port.
 
 Serves requests of 4 and 32 clusters of 2048 points through
 GraspPipeline.from_checkpoints (the five committed checkpoints) under
 torch.profiler, and prints for each size: the host-clock time per request,
 the device busy share (summed kernel time over wall time: one stream, so
 kernels do not overlap), and the device time by kernel, grouped into the
-port's two CUDA kernels, matrix products, and everything else.
+port's two CUDA kernels, matrix products, and everything else. Then the
+same for one pass of train/loop.py evaluate over 140 seeded test clouds at
+batch 24, for an SSG classifier, an MSG head and a vanilla head from the
+committed checkpoints.
 
 Run on a machine with a card: python3 scripts/profile_torch_serving.py
 """
@@ -23,7 +27,10 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from pointnet_like_pose_estimation_tpu_torch.data import build_dataset, load_dataset
+from pointnet_like_pose_estimation_tpu_torch.models import build_model
 from pointnet_like_pose_estimation_tpu_torch.pipeline import GraspPipeline, PipelineConfig
+from pointnet_like_pose_estimation_tpu_torch.train import TrainConfig, evaluate, load_checkpoint
 
 CHECKPOINTS = {
     "classifier": "log/classification/r3_pointnet2_cls_ssg/checkpoints/best.msgpack",
@@ -32,6 +39,8 @@ CHECKPOINTS = {
     "translation": "log/pose/r3_translation_ref/checkpoints/best.msgpack",
     "width": "log/pose/r3_width_ref/checkpoints/best.msgpack",
 }
+EVAL_MODELS = {"pointnet2_cls_ssg": "classification/r3_pointnet2_cls_ssg",
+               "sign_msg": "pose/r5_sign_msg", "rotation": "pose/r3_rotation"}
 REQUESTS = 5
 
 
@@ -45,6 +54,38 @@ def group(name: str) -> str:
     return "other"
 
 
+def profiled(fn, reps: int) -> dict:
+    """``fn`` ``reps`` times under torch.profiler, after 3 warm-up calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0) or 0
+        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[ev.key] = (dev_us / 1e3 / reps, ev.count // reps)
+    device_ms = sum(t for t, _ in kernels.values())
+    groups = {}
+    for name, (t, n) in kernels.items():
+        g = groups.setdefault(group(name), [0.0, 0])
+        g[0] += t
+        g[1] += n
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    return {
+        "call_ms": wall_ms / reps,
+        "device_ms_per_call": device_ms if kernels else "not measured",
+        "device_busy_share": device_ms / (wall_ms / reps) if kernels else "not measured",
+        "groups_ms_and_launches": groups,
+        "top_kernels_ms_and_launches": {k[:90]: v for k, v in top},
+    }
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("profile_torch_serving: no CUDA device")
@@ -55,35 +96,17 @@ def main():
     for K in (4, 32):
         clusters = (rng.uniform(-0.5, 0.5, (K, 1, 3))
                     + 0.05 * rng.standard_normal((K, 2048, 3))).astype(np.float32)
-        for _ in range(3):
-            pipe.infer_clusters(clusters)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(REQUESTS):
-                pipe.infer_clusters(clusters)
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-        kernels = {}
-        for ev in prof.key_averages():
-            dev_us = getattr(ev, "self_device_time_total", 0) or 0
-            if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-                kernels[ev.key] = (dev_us / 1e3 / REQUESTS, ev.count // REQUESTS)
-        device_ms = sum(t for t, _ in kernels.values())
-        groups = {}
-        for name, (t, n) in kernels.items():
-            g = groups.setdefault(group(name), [0.0, 0])
-            g[0] += t
-            g[1] += n
-        top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
-        report[f"K={K} M=2048"] = {
-            "request_ms": wall_ms / REQUESTS,
-            "device_ms_per_request": device_ms if kernels else "not measured",
-            "device_busy_share": device_ms / (wall_ms / REQUESTS) if kernels else "not measured",
-            "groups_ms_and_launches": groups,
-            "top_kernels_ms_and_launches": {k[:90]: v for k, v in top},
-        }
+        report[f"K={K} M=2048"] = profiled(lambda: pipe.infer_clusters(clusters), REQUESTS)
         print(json.dumps({f"K={K} M=2048": report[f"K={K} M=2048"]}, indent=1), flush=True)
+
+    test = load_dataset(build_dataset(80, seed=0), "test")
+    for name, experiment in EVAL_MODELS.items():
+        model, _ = load_checkpoint(
+            os.path.join(ROOT, "log", experiment, "checkpoints", "best.msgpack"), build_model(name))
+        cfg = TrainConfig.for_model(name, batch_size=24)
+        key = f"evaluate {name}, {len(test)} clouds"
+        report[key] = profiled(lambda: evaluate(cfg, model, test), REQUESTS)
+        print(json.dumps({key: report[key]}, indent=1), flush=True)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,

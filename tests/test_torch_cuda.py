@@ -86,6 +86,78 @@ def test_ball_query_kernel_matches_plain_version(card, radii, ks):
     assert torch.equal(got, ball_query_reference(pts, cent, radii, ks))
 
 
+def _spliced(B, N, P, seed):
+    """Unit clouds with a one-hot class, one per cloud, on the channels
+    after the coordinates (the pose heads' input)."""
+    x = _clouds(B, N, seed)
+    if P == 3:
+        return x
+    onehot = torch.zeros(B, N, P - 3)
+    onehot[torch.arange(B), :, torch.arange(B) % (P - 3)] = 1.0
+    return torch.cat([x, onehot], dim=-1)
+
+
+_MSG1 = ((0.1, 0.2, 0.4), (16, 32, 128))
+_MSG2 = ((0.2, 0.4, 0.8), (32, 64, 128))
+
+
+@pytest.mark.parametrize(
+    "B,N,P,S,radii,ks,offset",
+    [
+        (3, 1024, 10, 512, (0.2,), (32,), 0.0),            # a head's SA1, SSG
+        (3, 1024, 10, 512, *_MSG1, 0.0),                   # a head's SA1, MSG
+        (3, 512, 10, 128, *_MSG2, 0.0),                    # a head's SA2, MSG
+        (3, 512, 3, 128, *_MSG2, 0.0),                     # the classifier's SA2, MSG
+        (2, 1000, 3, 512, *_MSG1, 0.0),                    # N no multiple of the step
+        (2, 1024, 3, 100, (0.2,), (32,), 0.0),             # ragged centroid tile
+        (1, 40000, 3, 64, (0.05, 0.1), (16, 32), 0.0),     # cloud above shared memory: global path
+        (2, 1024, 3, 512, *_MSG1, 4.0),                    # empty balls at three scales
+        (2, 300, 7, 77, (0.3, 0.6), (8, 24), 0.0),         # the any-P instance
+        (2, 512, 3, 64, (0.1, 0.2, 0.3, 0.4, 0.5), (4, 8, 16, 32, 64), 0.0),   # five scales
+        (2, 4096, 3, 40, (0.3,), (600,), 0.0),             # the tile shrinks to 64 centroids
+    ],
+    ids=["p10_ssg", "p10_msg_sa1", "p10_msg_sa2", "msg_sa2", "n1000", "ragged_s", "global_path",
+         "empty_three_scales", "any_p", "five_scales", "tile64"],
+)
+def test_ball_query_kernel_matches_plain_version_at_new_shapes(card, B, N, P, S, radii, ks, offset):
+    pts = _spliced(B, N, P, 11).to(card)
+    cent = (pts[:, torch.randperm(N, generator=torch.Generator().manual_seed(1))[:S]] + offset).contiguous()
+    got = ball_query_multi(pts, cent, radii, ks)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ball_query_reference(pts, cent, radii, ks))
+    if offset:
+        assert bool((got == N - 1).all())
+
+
+@pytest.mark.parametrize("name", ["rotation_ssg", "sign_msg", "translation_msg", "pointnet_cls",
+                                  "pose_feat_trans", "pose_classify"])
+def test_head_forward_on_card_matches_cpu(card, name):
+    """One forward per family on seeded weights: the card (FPS and ball
+    query kernels over 10 channels) against the same model on the CPU."""
+    import copy
+
+    from pointnet_like_pose_estimation_tpu_torch.models import build_model, get_model_spec
+
+    torch.manual_seed(2)
+    model = build_model(name).eval()
+    spec = get_model_spec(name)
+    x = _spliced(3, 1024, 3 if spec.input_kind == "xyz" else 10, 12)
+    inputs = (x, torch.randn(3, 3)) if spec.input_kind == "spliced_mean" else (x,)
+    with torch.inference_mode():
+        want = model(*inputs)
+        got = copy.deepcopy(model).to(card)(*(t.to(card) for t in inputs))
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    for g, w in zip(got, want):
+        if g.dtype.is_floating_point and spec.task != "sign":
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-3, atol=1e-3)
+    if spec.task == "classify":
+        assert torch.equal(got[2].cpu(), want[2])
+    if spec.task == "sign":
+        torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-3, atol=1e-3)
+        sure = (want[0] - 0.5).abs() > 1e-4
+        assert torch.equal(got[1].cpu()[sure], want[1][sure])
+
+
 def test_pipeline_on_card_matches_cpu(card):
     from pointnet_like_pose_estimation_tpu_torch.pipeline import GraspPipeline
 

@@ -1,0 +1,142 @@
+"""Every model of the registry on the CPU against the JAX package: the
+variables of a JAX ``model.init`` (through ``build_state``), with the
+BatchNorm statistics and affine parameters perturbed and the T-Nets' zero
+output kernels given small values so that the transforms are not the
+identity, are carried over by ``from_flax_variables`` with ``strict=True``
+and both models run in eval mode on the same numpy-seeded inputs. Widths
+are the published ones; only the point count is narrowed (N = 128, so the
+512 and 128 centroids of the set-abstraction levels repeat points, on both
+sides alike). Floats agree to rtol = atol = 1e-4 (float32 products summed
+in another order), classes and hard signs exactly.
+"""
+
+import flax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pointnet_like_pose_estimation_tpu.models import MODEL_REGISTRY as JAX_REGISTRY
+from pointnet_like_pose_estimation_tpu.train.config import TrainConfig as JaxTrainConfig
+from pointnet_like_pose_estimation_tpu.train.loop import build_state
+from pointnet_like_pose_estimation_tpu_torch.models import (
+    MODEL_REGISTRY,
+    build_model,
+    get_model_spec,
+)
+from pointnet_like_pose_estimation_tpu_torch.nn import TNet
+from pointnet_like_pose_estimation_tpu_torch.pipeline.infer import _lecun_normal_
+from pointnet_like_pose_estimation_tpu_torch.utils.checkpoint import from_flax_variables
+
+B, N, NUM_CLASSES, TOL = 2, 128, 7, 1e-4
+
+
+def perturbed_variables(name, seed=0):
+    """(JAX model, variables as nested dicts of numpy arrays)."""
+    _, jmodel, state = build_state(JaxTrainConfig(model=name, num_classes=NUM_CLASSES, num_points=N))
+    rng = np.random.default_rng(seed)
+    flat = flax.traverse_util.flatten_dict(
+        flax.core.unfreeze({"params": state.params, "batch_stats": state.batch_stats}))
+    out = {}
+    for path, value in flat.items():
+        v = np.array(value, np.float32)
+        leaf, is_bn = path[-1], path[-2].startswith("bn")
+        if leaf == "mean":
+            v = v + 0.1 * rng.standard_normal(v.shape)
+        elif leaf == "var":
+            v = v * rng.uniform(0.5, 1.5, v.shape)
+        elif leaf == "scale":
+            v = v * rng.uniform(0.8, 1.2, v.shape)
+        elif leaf == "bias" and is_bn:
+            v = v + 0.05 * rng.standard_normal(v.shape)
+        elif leaf == "kernel" and path[-2] == "out":          # a T-Net's zero output kernel
+            v = v + 0.02 * rng.standard_normal(v.shape)
+        out[path] = v.astype(np.float32)
+    return jmodel, flax.traverse_util.unflatten_dict(out)
+
+
+def model_inputs(name, seed=1):
+    spec = get_model_spec(name)
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, N, 3)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=-1).max(axis=1)[:, None, None]
+    if spec.input_kind == "xyz":
+        return (x,)
+    onehot = np.zeros((B, N, NUM_CLASSES), np.float32)
+    onehot[np.arange(B), :, rng.integers(0, NUM_CLASSES, B)] = 1.0
+    spliced = np.concatenate([x, onehot], axis=-1)
+    if spec.input_kind == "spliced_mean":
+        return spliced, rng.standard_normal((B, 3)).astype(np.float32)
+    return (spliced,)
+
+
+def assert_outputs_match(name, got, want):
+    task = get_model_spec(name).task
+    if task == "classify":
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=TOL, atol=TOL)
+        np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    elif task == "sign":
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=TOL, atol=TOL)
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    else:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+
+
+def test_registry_has_the_jax_package_names_and_kinds():
+    assert sorted(MODEL_REGISTRY) == sorted(JAX_REGISTRY) and len(MODEL_REGISTRY) == 19
+    for name, spec in MODEL_REGISTRY.items():
+        assert (spec.name, spec.task, spec.input_kind) == (
+            name, JAX_REGISTRY[name].task, JAX_REGISTRY[name].input_kind)
+    with pytest.raises(KeyError, match="unknown model"):
+        build_model("no_such_model")
+
+
+@pytest.mark.parametrize("name", sorted(JAX_REGISTRY))
+def test_model_matches_jax_in_eval_mode(name):
+    jmodel, variables = perturbed_variables(name)
+    tmodel = build_model(name, NUM_CLASSES).eval()
+    tmodel.load_state_dict(from_flax_variables(variables), strict=True)
+    inputs = model_inputs(name)
+    want = jmodel.apply(variables, *map(jnp.asarray, inputs), train=False)
+    with torch.no_grad():
+        got = tmodel(*map(torch.from_numpy, inputs))
+    assert_outputs_match(name, got, want)
+    if name == "pose_classify":
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))     # (-1)**choice
+
+
+def test_dead_tnet_holds_parameters_and_changes_nothing():
+    """``compat_dead_tnet``: the JAX variables (with the dead T-Net's) load
+    with strict=True and the output equals the head without it."""
+    from pointnet_like_pose_estimation_tpu.models.heads import VanillaHead as JaxVanillaHead
+    from pointnet_like_pose_estimation_tpu_torch.models import VanillaHead
+
+    import jax
+
+    x = model_inputs("rotation")[0]
+    jmodel = JaxVanillaHead(out_dim=3, compat_dead_tnet=True)
+    variables = jax.tree_util.tree_map(
+        np.asarray, flax.core.unfreeze(jmodel.init(jax.random.PRNGKey(0), jnp.asarray(x), train=False)))
+    dead = VanillaHead(3 + NUM_CLASSES, out_dim=3, compat_dead_tnet=True).eval()
+    dead.load_state_dict(from_flax_variables(variables), strict=True)
+    assert any(k.startswith("dead_tnet.") for k in dead.state_dict())
+    with torch.no_grad():
+        got = dead(torch.from_numpy(x))
+    want = jmodel.apply(variables, jnp.asarray(x), train=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+
+
+def test_seeded_init_keeps_the_tnet_identity():
+    model = build_model("pointnet_cls")
+    _lecun_normal_(model, torch.Generator().manual_seed(0))
+    tnets = [m for m in model.modules() if isinstance(m, TNet)]
+    assert len(tnets) == 2
+    for t in tnets:
+        assert not t.out.weight.any()
+        assert torch.equal(t.out.bias, torch.eye(t.k).reshape(-1))
+    assert model.head.fc_0.weight.abs().sum() > 0
+    x = torch.from_numpy(model_inputs("pointnet_cls")[0])
+    with torch.no_grad():
+        _, trans, _ = model.eval()(x)
+    assert torch.equal(trans, torch.eye(64).expand(B, 64, 64))
