@@ -44,12 +44,14 @@ Phases, any failure exits non-zero:
    TOL), the replay classes against the recorded JAX ones. Then latency
    and peak device memory of executor and unfused model at B = 32 and 256.
 
-7. the evaluation path (data/dataset.py build_dataset, train/loop.py
-   evaluate): a seeded dataset built on the card, then every model of
-   EVAL_MODELS evaluated at batch 24 and full width, from the committed
-   checkpoints or seeded weights, with the launch counts checked and the
-   results held against the same code on the CPU; a request through a
-   pipeline with the MSG classifier; eval throughput per model.
+7. the evaluation path (cli.py generate and eval, data/dataset.py
+   build_dataset, train/loop.py evaluate): a seeded dataset built on the
+   card by the generate command, then every model of EVAL_MODELS evaluated
+   at batch 24 and full width, from the committed checkpoints or seeded
+   weights, with the launch counts checked and the results held against
+   the same code on the CPU; the eval command on every committed
+   checkpoint, held against evaluate; a request through a pipeline with
+   the MSG classifier; eval throughput per model.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -57,7 +59,9 @@ The line before the last is the kernels JSON; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
 import os
 import statistics
@@ -197,14 +201,17 @@ def scanned_points(points, centroids, radii, ks, one_pass: bool = False) -> int:
 
 
 def ball_query_bound_ms(points, centroids, radii, ks):
-    """Bytes: points, centroids and indices once. Operations: (3P+3) per
-    point the scan of this data needs; one scan serves all scales, so per
-    centroid that is up to the K-th in-ball point of the scale that needs
-    the most."""
+    """Bytes: points, centroids and indices once. Operations: 2P once per
+    point for |p|^2, and 2P+2 per (centroid, point) pair the scan of this
+    data needs: P multiplies and P-1 adds for the inner product (the factor
+    -2 folds into the centroid), the two norms added, the compare. One scan
+    serves all scales, so per centroid the pairs run up to the K-th in-ball
+    point of the scale that needs the most."""
     B, N, P = points.shape
     S = centroids.shape[1]
     nbytes = 4 * (B * N * P + B * S * P + B * S * sum(ks))
-    ops = scanned_points(points, centroids, radii, ks, one_pass=True) * (3 * P + 3)
+    pairs = scanned_points(points, centroids, radii, ks, one_pass=True)
+    ops = pairs * (2 * P + 2) + B * N * 2 * P
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -251,8 +258,9 @@ def fused_sa_tc_bound_ms(ptsfeat, centroids, ks, layer_widths) -> float:
 def path_calls(rng, device):
     """The FPS and ball-query calls that are timed: the launches of one
     request of 32 clusters of 2048 points, the MSG levels on the same
-    clouds, and SA1 of a pose head on the clouds spliced with a one-hot
-    class (10 channels). Returns ``(fps_calls, ball_query_calls)``."""
+    clouds, and SA1 and SA2 of a three-level pose head on the clouds spliced
+    with a one-hot class (10 channels, all of them coordinates). Returns
+    ``(fps_calls, ball_query_calls)``."""
     import torch
 
     from pointnet_like_pose_estimation_tpu_torch.data.augment import splice_onehot
@@ -268,12 +276,15 @@ def path_calls(rng, device):
     labels = torch.from_numpy(rng.integers(0, 7, 32)).to(device)
     xyz10 = splice_onehot(xyz, labels, 7)
     c10 = index_points(xyz10, fps(xyz10, 512))
+    c10_2 = index_points(c10, fps(c10, 128))
     fps_calls = [("resample", raw, 1024), ("SA1", xyz, 512), ("SA2", c1, 128),
-                 ("head SA1, C = 10", xyz10, 512)]
+                 ("head SA1, C = 10", xyz10, 512), ("head SA2, C = 10", c10, 128)]
     bq_calls = [("SSG SA1", xyz, c1, *SSG_SA1), ("SSG SA2", c1, c2, *SSG_SA2),
                 ("MSG SA1", xyz, c1, *MSG_SA1), ("MSG SA2", c1, c2, *MSG_SA2),
                 ("head SA1, P = 10, SSG scale", xyz10, c10, *SSG_SA1),
-                ("head SA1, P = 10, MSG scales", xyz10, c10, *MSG_SA1)]
+                ("head SA1, P = 10, MSG scales", xyz10, c10, *MSG_SA1),
+                ("head SA2, P = 10, SSG scale", c10, c10_2, *SSG_SA2),
+                ("head SA2, P = 10, MSG scales", c10, c10_2, *MSG_SA2)]
     return fps_calls, bq_calls
 
 
@@ -304,7 +315,7 @@ def kernel_phase(device) -> list[dict]:
     # the last two take the kernel's shared-memory path (N above the register path, C != 3)
     for B, N, C, S, start in [(8, 1024, 3, 512, 0), (8, 512, 3, 128, 0), (8, 2048, 3, 1024, 0),
                               (8, 4096, 3, 1024, "per-cloud"), (4, 5000, 3, 512, "per-cloud"),
-                              (4, 1000, 6, 256, 0), (4, 1024, 10, 512, 0)]:
+                              (4, 1000, 6, 256, 0), (4, 1024, 10, 512, 0), (8, 512, 10, 128, 0)]:
         pts = torch.from_numpy(np.concatenate(
             [unit_clouds(rng, B, N), rng.standard_normal((B, N, C - 3)).astype(np.float32)], -1)
         ).to(device)
@@ -320,6 +331,8 @@ def kernel_phase(device) -> list[dict]:
         ("MSG SA2", 8, 512, 3, 128, MSG_SA2[0], MSG_SA2[1], False),
         ("P = 10, SSG scale", 8, 1024, 10, 512, SSG_SA1[0], SSG_SA1[1], False),
         ("P = 10, MSG scales", 8, 1024, 10, 512, MSG_SA1[0], MSG_SA1[1], False),
+        ("P = 10, SA2, SSG scale", 8, 512, 10, 128, SSG_SA2[0], SSG_SA2[1], False),
+        ("P = 10, SA2, MSG scales", 8, 512, 10, 128, MSG_SA2[0], MSG_SA2[1], False),
         ("P = 7 (any-P instance), two scales", 4, 300, 7, 77, (0.3, 0.6), (8, 24), False),
         ("five scales", 2, 512, 3, 64, (0.1, 0.2, 0.3, 0.4, 0.5), (4, 8, 16, 32, 64), False),
         ("N = 1000", 8, 1000, 3, 512, MSG_SA1[0], MSG_SA1[1], False),
@@ -352,7 +365,7 @@ def kernel_phase(device) -> list[dict]:
                        "bound_ms": bound, "bound_by": by, "us_per_step": 1e3 * ms / S})
     entries.append(("fps", "pointnet_like_pose_estimation_tpu_torch/kernels/csrc/fps.cu",
                     "pointnet_like_pose_estimation_tpu/kernels/fps.py:35", shapes,
-                    "32 clusters x 2048 points, and the SA1 call of a head on the spliced cloud"))
+                    "32 clusters x 2048 points, and the SA1 and SA2 calls of a head on the spliced cloud"))
     shapes = []
     for what, pts, cent, radii, ks in bq_calls:
         bound, by = ball_query_bound_ms(pts, cent, radii, ks)
@@ -365,7 +378,7 @@ def kernel_phase(device) -> list[dict]:
                        "bound_ms": bound, "bound_by": by})
     entries.append(("ball_query", "pointnet_like_pose_estimation_tpu_torch/kernels/csrc/ball_group.cu",
                     "pointnet_like_pose_estimation_tpu/kernels/ball_group.py:44", shapes,
-                    "one call at each of the six shapes, 32 clouds"))
+                    "one call at each of the eight shapes, 32 clouds"))
 
     return [kernel_entry(name, source, replaces, err[name], shapes, per)
             for name, source, replaces, shapes, per in entries]
@@ -724,14 +737,17 @@ EVAL_BATCH = 24
 
 
 def eval_phase(device, kernels: list[dict]) -> dict:
-    """The evaluation path: a seeded dataset built on the card by
-    ``build_dataset`` (80 clouds a class, so 140 test clouds), then
-    ``evaluate`` at the checkpoints' batch size of 24 and full width for
-    every model of EVAL_MODELS: the committed checkpoints, and seeded
-    weights with nontrivial BatchNorm where the repository has none. Each
-    ``evaluate`` must launch FPS and the ball query once per batch and
-    sampling level. Each model is held against the same code on the CPU
-    over 48 test clouds spread over the classes: per-cloud predictions
+    """The evaluation path: a seeded dataset built on the card by the
+    ``generate`` command (``build_dataset``, 80 clouds a class, so 140 test
+    clouds) and saved under build/, then ``evaluate`` at the checkpoints'
+    batch size of 24 and full width for every model of EVAL_MODELS: the
+    committed checkpoints, and seeded weights with nontrivial BatchNorm
+    where the repository has none. Each ``evaluate`` must launch FPS and
+    the ball query once per batch and sampling level. A model with a
+    checkpoint also goes through the ``eval`` command, which must print the
+    figures ``evaluate`` gave and launch as often. ``normalize_cloud`` must
+    give the same bits on the card and on the CPU. Each model is held
+    against the same code on the CPU over 48 test clouds spread over the classes: per-cloud predictions
     within TOL, classes equal, hard signs equal wherever the probability is
     more than 1e-4 from 0.5, every figure of ``evaluate`` within TOL
     relative. Then a request through a pipeline whose classifier is
@@ -739,10 +755,12 @@ def eval_phase(device, kernels: list[dict]) -> dict:
     the eval throughput per model (median of 5 passes after a warm-up)."""
     import torch
 
-    from pointnet_like_pose_estimation_tpu_torch.data import PoseDataset, build_dataset, load_dataset
+    from pointnet_like_pose_estimation_tpu_torch import cli
+    from pointnet_like_pose_estimation_tpu_torch.data import PoseDataset, load_dataset
     from pointnet_like_pose_estimation_tpu_torch.kernels.ball_group import ball_query_multi
     from pointnet_like_pose_estimation_tpu_torch.kernels.fps import fps
     from pointnet_like_pose_estimation_tpu_torch.models import build_model, get_model_spec
+    from pointnet_like_pose_estimation_tpu_torch.ops import normalize_cloud
     from pointnet_like_pose_estimation_tpu_torch.pipeline import GraspPipeline, PipelineConfig
     from pointnet_like_pose_estimation_tpu_torch.train import (
         TrainConfig,
@@ -754,12 +772,19 @@ def eval_phase(device, kernels: list[dict]) -> dict:
 
     t0 = time.perf_counter()
     f0 = fps.launches
-    fields = build_dataset(80, seed=0)                                        # default: cuda
-    test = load_dataset(fields, "test")
+    data_path = os.path.join(ROOT, "build", "chip_smoke_dataset.npz")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["generate", "--num-per-class", "80", "--seed", "0", "--out", data_path])  # default: cuda
+    test = load_dataset(data_path, "test")
     check(len(test) >= 140 and test.points.shape[1:] == (1024, 3), f"test split {test.points.shape}")
-    check(fps.launches > f0, "build_dataset did not launch the FPS kernel")
-    log(f"  dataset: {len(fields['labels'])} clouds built in {time.perf_counter() - t0:.1f} s "
+    check(fps.launches > f0, "the generate command did not launch the FPS kernel")
+    log(f"  dataset: {7 * 80} clouds built and saved in {time.perf_counter() - t0:.1f} s "
         f"({fps.launches - f0} FPS launches), {len(test)} test clouds")
+    for what, clouds in (("test clouds", test.points), ("seeded blobs", blobs(np.random.default_rng(8), 32, 1024))):
+        clouds = torch.from_numpy(clouds)
+        check(torch.equal(normalize_cloud(clouds.to(device)).cpu(), normalize_cloud(clouds)),
+              f"normalize_cloud of the {what}: the card's result is not the CPU's bit for bit")
+    log("  normalize_cloud: equal on the card and the CPU bit for bit (test clouds, seeded blobs)")
     pick = np.linspace(0, len(test) - 1, 48).astype(int)
     subset = PoseDataset(**{k: getattr(test, k)[pick] for k in
                             ("points", "labels", "rot", "tran", "sign", "width")})
@@ -792,6 +817,24 @@ def eval_phase(device, kernels: list[dict]) -> dict:
         launches["ball_query"] += got[1]
         check(all(np.isfinite(np.asarray(v, np.float64)).all() for v in res.values()),
               f"{name}: non-finite result {res}")
+
+        if experiment is not None:
+            before = (fps.launches, ball_query_multi.launches)
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                cli.main(["eval", "--model", name, "--data", data_path, "--batch-size", str(EVAL_BATCH),
+                          "--log-dir", os.path.join(ROOT, "log"),
+                          "--experiment", os.path.basename(experiment)])       # default: cuda
+            torch.cuda.synchronize()
+            from_cli = json.loads(printed.getvalue().strip().splitlines()[-1])
+            check(from_cli.pop("checkpoint_epoch") == meta["epoch"], f"{name}: eval command's epoch")
+            check(set(from_cli) == set(res) and all(
+                np.allclose(from_cli[k], res[k], rtol=1e-6, atol=1e-6) for k in res),
+                f"{name}: the eval command printed {from_cli}, evaluate gave {res}")
+            cli_got = (fps.launches - before[0], ball_query_multi.launches - before[1])
+            check(cli_got == got, f"{name}: eval command launched fps/ball_query {cli_got}, evaluate {got}")
+            launches["fps"] += cli_got[0]
+            launches["ball_query"] += cli_got[1]
 
         on_card = evaluate(cfg, model, subset)
         on_cpu = evaluate(cfg, cpu_model, subset, device="cpu")
@@ -827,7 +870,8 @@ def eval_phase(device, kernels: list[dict]) -> dict:
         results[name] = {
             "weights": experiment or "seeded", "metric": res["metric"], "headline": headline,
             "loss": res["loss"], "clouds_per_s": len(test) / statistics.median(times),
-            "fps_and_ball_query_launches_per_batch": per_batch,
+            "fps_and_ball_query_launches_per_batch": got[0] // batches,
+            "eval_command": experiment is not None,
             "checkpoint_metric": None if meta is None else meta["metric"],
         }
         log(f"  eval {name} ({experiment or 'seeded weights'}): matches the CPU on 48 clouds; "
@@ -875,6 +919,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
 
+    t_start = time.perf_counter()
     card = card_line()
     log(f"card: {card} | torch: {torch.cuda.get_device_name(0)} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
@@ -924,6 +969,7 @@ def main() -> int:
     log("eval phase")
     evals = eval_phase(device, kernels)
 
+    log(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     log(card)
     print(json.dumps({"kernels": kernels, "latency": latency, "eval": evals, "card": card}),
           flush=True)

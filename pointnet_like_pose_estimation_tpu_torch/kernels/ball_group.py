@@ -25,8 +25,7 @@ MAX_SHARED_BYTES = 227 * 1024
 # (centroids a block, threads a centroid), in the order they are tried
 _TILE_AND_SPLIT = ((64, 4), (128, 2), (64, 2), (128, 1), (64, 1), (32, 1))
 _SPLIT_MAX_INDICES = 64             # kSplitMaxIndices: sum(ks) up to which four threads share a centroid
-_STEP_BY_CHANNELS = {3: 16, 10: 16}  # PLPE_BQ_STEP_P3, PLPE_BQ_STEP_P10
-_STEP_ANY = 2                       # PLPE_BQ_STEP_ANY
+STEP = 16                           # PLPE_BQ_STEP: points a thread forms together
 
 
 class BallQueryPlan(NamedTuple):
@@ -34,7 +33,6 @@ class BallQueryPlan(NamedTuple):
 
     tile: int          # centroids a block
     split: int         # threads that share a centroid, each scanning a part of the points
-    step: int          # points whose loads and distances are formed together
     held: int          # scales the kernel holds in registers: 1, 3 or MAX_SCALES
     cloud_bytes: int   # the staged cloud; 0 takes the kernel's global path
     shared_bytes: int  # the staged cloud, the index segments and the parts' counts
@@ -50,7 +48,7 @@ def ball_query_plan(N: int, P: int, ks) -> BallQueryPlan:
 
     A block stages its cloud in shared memory, each point as ``|p|^2`` and
     its P channels padded to a multiple of four floats, N rounded up to a
-    whole number of steps: ``16 * ceil((P + 1) / 4) * round_up(N, step)``
+    whole number of steps: ``16 * ceil((P + 1) / 4) * round_up(N, STEP)``
     bytes. Beside it lie one index segment of ``sum(ks)`` ints and ``held``
     counts for each of the block's ``tile * split`` threads. ``(tile,
     split)`` is the first of (64, 4), (128, 2), (64, 2), (128, 1), (64, 1),
@@ -59,25 +57,24 @@ def ball_query_plan(N: int, P: int, ks) -> BallQueryPlan:
     segments of a card's worth of blocks no longer fit on its SMs at once);
     if none fits, the cloud stays in global memory (``cloud_bytes`` 0, the
     global path of the same kernel) and the first that fits alone is taken.
-    ``step``, the points a thread forms together between two tests whether
-    its warp's balls are full, was picked by measurement
-    (``scripts/tune_torch_ball_query.py``, recorded in PERF.md). The plan
-    depends on the shape alone, not on the number of clouds or centroids.
-    The kernel computes the same figures and refuses a launch whose plan
-    differs. Raises ``ValueError`` when even 32 rows of indices do not fit.
+    ``STEP``, the points a thread forms together between two tests whether
+    its warp's balls are full, is one constant for every shape, picked by
+    measurement (``scripts/tune_torch_ball_query.py``, recorded in PERF.md).
+    The plan depends on the shape alone, not on the number of clouds or
+    centroids. The kernel computes the same figures and refuses a launch
+    whose plan differs. Raises ``ValueError`` when even 32 rows of indices do not fit.
     """
     if N <= 0 or not 0 < P <= MAX_CHANNELS or not 0 < len(ks) <= MAX_SCALES or min(ks) <= 0:
         raise ValueError(f"ball_query: no plan for N={N}, P={P}, ks={tuple(ks)}")
-    step = _STEP_BY_CHANNELS.get(P, _STEP_ANY)
     held = 1 if len(ks) == 1 else 3 if len(ks) <= 3 else MAX_SCALES
-    staged = 16 * (_round_up(P + 1, 4) // 4) * _round_up(N, step)
+    staged = 16 * (_round_up(P + 1, 4) // 4) * _round_up(N, STEP)
     for cloud in (staged, 0):
         for tile, split in _TILE_AND_SPLIT:
             if split == 4 and sum(ks) > _SPLIT_MAX_INDICES:
                 continue
             nbytes = cloud + 4 * tile * split * (sum(ks) + held)
             if nbytes <= MAX_SHARED_BYTES:
-                return BallQueryPlan(tile, split, step, held, cloud, nbytes)
+                return BallQueryPlan(tile, split, held, cloud, nbytes)
     raise ValueError(f"ball_query: ks={tuple(ks)} exceed the kernel's {MAX_SHARED_BYTES} bytes "
                      f"of shared memory ({nbytes} for 32 centroids)")
 
@@ -141,7 +138,7 @@ def ball_query_multi(
     lib = _build.library("ball_group")
     lib.plpe_ball_query.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-        + [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        + [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     )
     lib.plpe_ball_query.restype = ctypes.c_int
     code = lib.plpe_ball_query(

@@ -12,7 +12,8 @@
 //
 // What bounds it: the rate at which an SM takes instructions. The bytes are tiny (one read of the
 // points and centroids, one write of the indices) and the distance
-// arithmetic is B*S*N*(3P+3) flops for a full scan, but every rounding
+// arithmetic is B*S*N*(2P+2) flops for a full scan beside B*N*2P for the
+// points' norms, but every rounding
 // step is an instruction of its own (no FMA, see below), and around them
 // sit the loads, the compare and the compaction of the in-ball indices.
 // The design cuts the instructions per (centroid, point) pair and keeps
@@ -32,8 +33,7 @@
 // - One pass serves all scales: one distance per pair, one compare and
 //   one predicated store per scale, each scale with its own count. A warp
 //   leaves the scan when every scale of its 32 centroids is full; the
-//   test is made once per `step` points (the launch plan), whose loads go
-//   out together.
+//   test is made once per kStep points, whose loads go out together.
 // - The scan is straight-line code. A thread collects its indices in a
 //   tile of shared memory: a store there is one predicated instruction on
 //   a 32-bit address, where a store to the output row cost a divergent
@@ -63,28 +63,22 @@
 // -2*(c_i*p_i) and the sum of the scaled products equals -2*inner bit for
 // bit. No point flips across a radius boundary between the two versions.
 //
-// The launch plan (centroid tile, split, points per step, shared bytes) is
-// made by kernels/ball_group.py ball_query_plan and computed here again by
+// The launch plan (centroid tile, split, shared bytes) is made by kernels/ball_group.py ball_query_plan and computed here again by
 // the same rule: a launch whose plan differs is refused.
 
 #include <cuda_runtime.h>
 
 #include <cmath>
 
-// points whose loads and distances are formed together, by channel count;
-// mirrored by ball_query_plan
-#ifndef PLPE_BQ_STEP_P3
-#define PLPE_BQ_STEP_P3 16
-#endif
-#ifndef PLPE_BQ_STEP_P10
-#define PLPE_BQ_STEP_P10 16
-#endif
-#ifndef PLPE_BQ_STEP_ANY
-#define PLPE_BQ_STEP_ANY 2
+// points whose loads and distances a thread forms together; STEP of
+// kernels/ball_group.py (a macro so that the tuning script can vary it)
+#ifndef PLPE_BQ_STEP
+#define PLPE_BQ_STEP 16
 #endif
 
 namespace {
 
+constexpr int kStep = PLPE_BQ_STEP;
 constexpr int kMaxScales = 8;
 constexpr int kMaxChannels = 32;
 constexpr int kMaxThreads = 256;               // tile * split
@@ -112,10 +106,6 @@ __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / 
 // floats of one staged point: |p|^2, then the channels, padded to 16 bytes
 __host__ __device__ constexpr int point_stride(int P) { return round_up(P + 1, 4); }
 
-__host__ __device__ constexpr int step_of(int P) {
-  return P == 3 ? PLPE_BQ_STEP_P3 : P == 10 ? PLPE_BQ_STEP_P10 : PLPE_BQ_STEP_ANY;
-}
-
 // kP > 0: exactly kP channels, all loops unrolled to it. kP == 0: any
 // P <= kMaxChannels at run time. kL: the scales held in registers, at
 // least the call's count. kShared: the cloud is staged in shared memory.
@@ -127,7 +117,6 @@ ball_query_kernel(const float* __restrict__ points,     // [B, N, P]
                   int N, int S, int P_any, int tiles, int k_total, int tile, int split,
                   Scales sc) {
   constexpr int kCh = kP > 0 ? kP : kMaxChannels;  // channels a thread can hold
-  constexpr int kStep = step_of(kP);
   constexpr int kVec = point_stride(kCh) / 4;
   const int P = kP > 0 ? kP : P_any;
   const int vecs = kP > 0 ? kVec : point_stride(P) / 4;  // float4s per staged point
@@ -313,7 +302,7 @@ cudaError_t launch_scales(int held, const float* points, const float* centroids,
 // (128, 1), (64, 1), (32, 1) whose index segments and counts fit beside the staged
 // cloud; if none does, the first that fits without it (the global path).
 bool make_plan(int N, int P, int k_total, int held, Launch* a) {
-  const long long staged = 16LL * (point_stride(P) / 4) * round_up(N, step_of(P));
+  const long long staged = 16LL * (point_stride(P) / 4) * round_up(N, kStep);
   const int options[6][2] = {{64, 4}, {128, 2}, {64, 2}, {128, 1}, {64, 1}, {32, 1}};
   for (int pass = 0; pass < 2; ++pass) {
     const long long cloud = pass == 0 ? staged : 0;
@@ -336,8 +325,7 @@ bool make_plan(int N, int P, int k_total, int held, Launch* a) {
 extern "C" {
 
 // r2[l] and ks[l] are host arrays of `num_scales` entries. `tile`
-// (centroids a block), `split` (threads a centroid), `step` (points formed
-// together), `held` (scales held in registers: 1, 3 or 8), `cloud_bytes`
+// (centroids a block), `split` (threads a centroid), `held` (scales held in registers: 1, 3 or 8), `cloud_bytes`
 // (the staged cloud; 0: the global path) and `shared_bytes` (cloud, index
 // segments and counts) are the launch plan of kernels/ball_group.py
 // ball_query_plan; they are computed here again by the same rule and a
@@ -345,7 +333,7 @@ extern "C" {
 // cudaError_t of the launch (0 on success).
 int plpe_ball_query(const float* points, const float* centroids, int* out,
                     int B, int N, int S, int P, const float* r2, const int* ks,
-                    int num_scales, int tile, int split, int step, int held, int cloud_bytes,
+                    int num_scales, int tile, int split, int held, int cloud_bytes,
                     int shared_bytes, void* stream) {
   if (B <= 0 || N <= 0 || S <= 0 || P <= 0 || P > kMaxChannels ||
       num_scales <= 0 || num_scales > kMaxScales)
@@ -363,7 +351,7 @@ int plpe_ball_query(const float* points, const float* centroids, int* out,
   const int my_held = num_scales == 1 ? 1 : num_scales <= 3 ? 3 : kMaxScales;
   Launch a = {B, N, S, P, k_total, 0, 0, 0, 0};
   if (!make_plan(N, P, k_total, my_held, &a)) return static_cast<int>(cudaErrorInvalidValue);
-  if (tile != a.tile || split != a.split || step != step_of(P) || held != my_held ||
+  if (tile != a.tile || split != a.split || held != my_held ||
       cloud_bytes != a.cloud_bytes || shared_bytes != a.shared_bytes)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

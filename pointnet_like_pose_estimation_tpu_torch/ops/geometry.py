@@ -46,14 +46,23 @@ def normalize_cloud(points: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
     The result feeds FPS and the ball query, whose selections turn on the
     last bit of a distance, so it must come out the same on the CPU and on
-    the card. A float32 sum is taken in another order on each, and a
-    float32 division is not rounded alike on both; so the whole is formed
-    in float64, whose last bits the one rounding to float32 absorbs.
+    the card. Two steps do not: the mean, whose sum is taken in another
+    order on each, and the float32 square root, which is not rounded alike
+    on both. The mean is accumulated in float64 and the one root per cloud
+    is taken in float64, each rounded once to float32. The rest is float32
+    as in the JAX package: subtraction, the squared norm summed term by term
+    in channel order and division are rounded alike on both, and a maximum
+    does not round (so the root of the largest squared norm is the largest
+    norm).
     """
-    p = points.double()
-    centered = p - p.mean(dim=-2, keepdim=True)
-    scale = torch.sqrt(_dot_last(centered, centered))[..., None]
-    return (centered / (scale.amax(dim=-2, keepdim=True) + eps)).to(points.dtype)
+    mean = points.mean(dim=-2, keepdim=True, dtype=torch.float64).to(points.dtype)
+    centered = points - mean
+    sq = centered * centered
+    norm2 = sq[..., 0]
+    for c in range(1, sq.shape[-1]):
+        norm2 = norm2 + sq[..., c]
+    scale = torch.sqrt(norm2.amax(dim=-1, keepdim=True).double()).to(points.dtype)[..., None]
+    return centered / (scale + eps)
 
 
 def euler_rotation_matrix(angles_rad: torch.Tensor) -> torch.Tensor:

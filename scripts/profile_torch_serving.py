@@ -12,25 +12,36 @@ batch 24, for an SSG classifier, an MSG head and a vanilla head from the
 committed checkpoints.
 
 Run on a machine with a card: python3 scripts/profile_torch_serving.py
+
+    python3 scripts/profile_torch_serving.py --latency-against build/parent
+
+times, without the profiler, the request latency (host clock around
+``infer_clusters`` ending in a synchronize, median and least of 30 requests
+after 5 warm-up ones, at 4 and 32 clusters of 2048 points) and one
+``normalize_cloud`` of ``[32, 1024, 3]`` (device time between two events, and
+host clock) with the package of another checkout of the repository (say the
+parent commit unpacked by ``git archive``) and with this one, each in a
+process of its own, in the order other, this, this, other, within one run on
+one card. The checkpoints are this checkout's in every turn.
 """
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
+# the package comes from this checkout, or from the one named by --root
+PACKAGE_ROOT = os.path.abspath(sys.argv[2]) if sys.argv[1:2] == ["--root"] else ROOT
+sys.path.insert(0, PACKAGE_ROOT)
 
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from pointnet_like_pose_estimation_tpu_torch.data import build_dataset, load_dataset
-from pointnet_like_pose_estimation_tpu_torch.models import build_model
 from pointnet_like_pose_estimation_tpu_torch.pipeline import GraspPipeline, PipelineConfig
-from pointnet_like_pose_estimation_tpu_torch.train import TrainConfig, evaluate, load_checkpoint
 
 CHECKPOINTS = {
     "classifier": "log/classification/r3_pointnet2_cls_ssg/checkpoints/best.msgpack",
@@ -86,16 +97,72 @@ def profiled(fn, reps: int) -> dict:
     }
 
 
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+
+
+def clusters_of(rng, K):
+    return (rng.uniform(-0.5, 0.5, (K, 1, 3))
+            + 0.05 * rng.standard_normal((K, 2048, 3))).astype(np.float32)
+
+
+def latency() -> None:
+    """Request latency and the time of one normalize_cloud, no profiler,
+    with the package under PACKAGE_ROOT; one JSON line."""
+    from pointnet_like_pose_estimation_tpu_torch.ops import normalize_cloud
+
+    paths = {k: os.path.join(ROOT, v) for k, v in CHECKPOINTS.items()}
+    pipe = GraspPipeline.from_checkpoints(PipelineConfig(), paths)
+    rng = np.random.default_rng(0)
+    report = {"card": card_line(), "root": PACKAGE_ROOT}
+    for K in (4, 32):
+        clusters = clusters_of(rng, K)
+        times = []
+        for i in range(35):
+            t0 = time.perf_counter()
+            pipe.infer_clusters(clusters)
+            torch.cuda.synchronize()
+            if i >= 5:
+                times.append(1e3 * (time.perf_counter() - t0))
+        report[f"request K={K} M=2048"] = {"median_ms": statistics.median(times), "min_ms": min(times)}
+    x = torch.from_numpy(clusters_of(rng, 32)[:, :1024]).cuda()
+    for _ in range(5):
+        normalize_cloud(x)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(100):
+        normalize_cloud(x)
+    end.record()
+    end.synchronize()
+    report["normalize_cloud [32,1024,3]"] = {
+        "device_ms": start.elapsed_time(end) / 100, "host_ms": 1e3 * (time.perf_counter() - t0) / 100}
+    print(json.dumps(report), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("profile_torch_serving: no CUDA device")
+    if sys.argv[1:2] == ["--latency-against"]:
+        me = [sys.executable, os.path.abspath(__file__), "--root"]
+        sys.exit(max(subprocess.run([*me, root]).returncode
+                     for root in (sys.argv[2], ROOT, ROOT, sys.argv[2])))
+    if sys.argv[1:2] == ["--root"]:
+        return latency()
+    from pointnet_like_pose_estimation_tpu_torch.data import build_dataset, load_dataset
+    from pointnet_like_pose_estimation_tpu_torch.models import build_model
+    from pointnet_like_pose_estimation_tpu_torch.train import TrainConfig, evaluate, load_checkpoint
+
     paths = {k: os.path.join(ROOT, v) for k, v in CHECKPOINTS.items()}
     pipe = GraspPipeline.from_checkpoints(PipelineConfig(), paths)
     rng = np.random.default_rng(0)
     report = {}
     for K in (4, 32):
-        clusters = (rng.uniform(-0.5, 0.5, (K, 1, 3))
-                    + 0.05 * rng.standard_normal((K, 2048, 3))).astype(np.float32)
+        clusters = clusters_of(rng, K)
         report[f"K={K} M=2048"] = profiled(lambda: pipe.infer_clusters(clusters), REQUESTS)
         print(json.dumps({f"K={K} M=2048": report[f"K={K} M=2048"]}, indent=1), flush=True)
 
@@ -107,11 +174,7 @@ def main():
         key = f"evaluate {name}, {len(test)} clouds"
         report[key] = profiled(lambda: evaluate(cfg, model, test), REQUESTS)
         print(json.dumps({key: report[key]}, indent=1), flush=True)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip()
-    print(json.dumps({"card": card, "profile": report}))
+    print(json.dumps({"card": card_line(), "profile": report}))
 
 
 if __name__ == "__main__":

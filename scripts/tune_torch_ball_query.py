@@ -2,21 +2,21 @@
 """Time the ball-query kernel of the PyTorch/CUDA port per launch plan.
 
     python3 scripts/tune_torch_ball_query.py                # the committed plan
-    python3 scripts/tune_torch_ball_query.py 8,4 16,8 32,8  # step at P = 3, at P = 10
+    python3 scripts/tune_torch_ball_query.py 8 16 32        # points a step
     python3 scripts/tune_torch_ball_query.py --other build/parent  # against another checkout
 
 Needs one NVIDIA GPU and nvcc. Each configuration runs in a process of its
-own: it builds ``csrc/ball_group.cu`` with the steps given (the points whose
-loads and distances a thread forms together, ``-DPLPE_BQ_STEP_P3`` and
-``-DPLPE_BQ_STEP_P10``), sets the same steps in ``ball_query_plan``, prints
+own: it builds ``csrc/ball_group.cu`` with the step given (the points whose
+loads and distances a thread forms together, ``-DPLPE_BQ_STEP``), sets the
+same ``STEP`` beside ``ball_query_plan``, prints
 what ptxas reports for the kernel, and runs the kernel phase of
 ``chip_smoke.py``: every exactness case against ``ball_query_reference``,
-then the time of one call at each of the six shapes of 32 clouds beside its
+then the time of one call at each of the eight shapes of 32 clouds beside its
 bound. The last line of a configuration is one JSON object.
 
 ``--other DIR`` times the ball query of the package under ``DIR`` (another
 checkout of the repository, say the parent commit unpacked by ``git
-archive``) and this one in turns, other, this, this, other, at the same six
+archive``) and this one in turns, other, this, this, other, at the same eight
 calls by the same method (CUDA graph replay), within one run on one card.
 """
 
@@ -30,7 +30,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def run_one(step_p3: int | None, step_p10: int | None) -> int:
+def run_one(step: int | None) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -40,9 +40,9 @@ def run_one(step_p3: int | None, step_p10: int | None) -> int:
     import chip_smoke
     from pointnet_like_pose_estimation_tpu_torch.kernels import _build, ball_group
 
-    if step_p3 is not None:
-        _build.NVCC_FLAGS += (f"-DPLPE_BQ_STEP_P3={step_p3}", f"-DPLPE_BQ_STEP_P10={step_p10}")
-        ball_group._STEP_BY_CHANNELS.update({3: step_p3, 10: step_p10})
+    if step is not None:
+        _build.NVCC_FLAGS += (f"-DPLPE_BQ_STEP={step}",)
+        ball_group.STEP = step
     torch.backends.cuda.matmul.allow_tf32 = False
     built = _build.build(("fps", "ball_group"))
     for line in built["ball_group"].log.splitlines():
@@ -52,7 +52,7 @@ def run_one(step_p3: int | None, step_p10: int | None) -> int:
     entry = next(k for k in kernels if k["name"] == "ball_query")
     print(json.dumps({
         "card": chip_smoke.card_line(),
-        "steps": dict(ball_group._STEP_BY_CHANNELS),
+        "step": ball_group.STEP,
         "ms": {s["call"]: s["ms"] for s in entry["shapes"]},
         "bound_ms": {s["call"]: s["bound_ms"] for s in entry["shapes"]},
     }), flush=True)
@@ -60,7 +60,7 @@ def run_one(step_p3: int | None, step_p10: int | None) -> int:
 
 
 def time_root(root: str) -> int:
-    """Time the six ball-query calls with the package found under ``root``."""
+    """Time the eight ball-query calls with the package found under ``root``."""
     import numpy as np
     import torch
 
@@ -89,11 +89,10 @@ def main(argv: list[str]) -> int:
             rc |= subprocess.run([*me, "--root", root]).returncode
         return rc
     if len(argv) == 2 and argv[0] == "--one":
-        steps = [int(x) for x in argv[1].split(",")] if argv[1] != "committed" else [None, None]
-        return run_one(*steps)
+        return run_one(None if argv[1] == "committed" else int(argv[1]))
     rc = 0
     for config in argv or ["committed"]:
-        print(f"== steps {config}", flush=True)
+        print(f"== step {config}", flush=True)
         rc |= subprocess.run([*me, "--one", config]).returncode
     return rc
 

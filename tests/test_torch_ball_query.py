@@ -11,6 +11,7 @@ import torch
 from pointnet_like_pose_estimation_tpu.kernels.ball_group import ball_query_multi_pallas
 from pointnet_like_pose_estimation_tpu_torch.kernels.ball_group import (
     MAX_SHARED_BYTES,
+    STEP,
     BallQueryPlan,
     ball_query_multi,
     ball_query_plan,
@@ -59,13 +60,13 @@ def test_every_path_shape_gets_a_plan(N, P, ks):
     plan = ball_query_plan(N, P, ks)
     assert isinstance(plan, BallQueryPlan)
     assert (plan.tile, plan.split) in ((64, 4), (128, 2), (64, 2), (128, 1), (64, 1), (32, 1))
-    assert plan.step > 0 and plan.held >= len(ks) and plan.held in (1, 3, 8)
+    assert STEP > 0 and plan.held >= len(ks) and plan.held in (1, 3, 8)
     # one formula: the cloud, then per thread one segment of sum(ks) indices and `held` counts
     threads = plan.tile * plan.split
     assert plan.shared_bytes == plan.cloud_bytes + 4 * threads * (sum(ks) + plan.held)
     assert plan.shared_bytes <= MAX_SHARED_BYTES
     # |p|^2 and P channels in whole 16-byte vectors, N in whole steps
-    staged = 16 * -(-(P + 1) // 4) * (-(-N // plan.step) * plan.step)
+    staged = 16 * -(-(P + 1) // 4) * (-(-N // STEP) * STEP)
     assert plan.cloud_bytes in (staged, 0)
     assert (plan.cloud_bytes == 0) == (staged + 4 * 32 * (sum(ks) + plan.held) > MAX_SHARED_BYTES)
 
@@ -86,7 +87,7 @@ def test_plan_keeps_the_cloud_and_shrinks_the_block_first():
     """One point more than fits beside the smallest block (32 centroids, one
     thread each) takes the global path, with the first block again."""
     ks = MSG_SA1                                   # 176 indices a centroid, 3 counts
-    step = ball_query_plan(1024, 3, ks).step
+    step = STEP
     fits = lambda n, threads: 16 * n + 4 * threads * (sum(ks) + 3) <= MAX_SHARED_BYTES   # noqa: E731
     n256 = max(n for n in range(step, 20000, step) if fits(n, 256))
     assert ball_query_plan(n256, 3, ks)[:2] == (128, 2)
@@ -101,7 +102,7 @@ def test_plan_keeps_the_cloud_and_shrinks_the_block_first():
 
 def test_plan_depends_on_the_shape_alone_and_refuses_what_cannot_fit():
     assert ball_query_plan(1024, 3, [32]) == ball_query_plan(1024, 3, (32,))
-    assert ball_query_plan(1024, 3, (32,)).step >= ball_query_plan(1024, 7, (32,)).step
+    assert ball_query_plan(1000, 3, (32,)).cloud_bytes == 16 * 1008      # N in whole steps of 16
     with pytest.raises(ValueError, match="no plan"):
         ball_query_plan(0, 3, (32,))
     with pytest.raises(ValueError, match="no plan"):

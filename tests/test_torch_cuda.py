@@ -52,6 +52,8 @@ def _clouds(B, N, seed):
         (2, 3000, 3, 1024),    # 8 points a thread, 512 threads, ragged
         (2, 5000, 3, 256),     # above the register path: distances in shared memory
         (2, 777, 6, 128),      # C != 3 takes the shared path too
+        (3, 1024, 10, 512),    # a pose head's SA1: the spliced cloud's 10 channels
+        (3, 512, 10, 128),     # a pose head's SA2
     ],
 )
 def test_fps_kernel_matches_plain_version(card, B, N, C, S):
@@ -86,6 +88,15 @@ def test_ball_query_kernel_matches_plain_version(card, radii, ks):
     assert torch.equal(got, ball_query_reference(pts, cent, radii, ks))
 
 
+def test_normalize_cloud_is_the_same_on_the_card_and_the_cpu(card):
+    """FPS and ball-query selections turn on the last bit of the normalised
+    cloud, so the card's must equal the CPU's exactly."""
+    from pointnet_like_pose_estimation_tpu_torch.ops import normalize_cloud
+
+    x = _clouds(8, 1024, 9) * 0.07 + torch.tensor([0.3, -0.2, 0.5])
+    assert torch.equal(normalize_cloud(x.to(card)).cpu(), normalize_cloud(x))
+
+
 def _spliced(B, N, P, seed):
     """Unit clouds with a one-hot class, one per cloud, on the channels
     after the coordinates (the pose heads' input)."""
@@ -106,6 +117,7 @@ _MSG2 = ((0.2, 0.4, 0.8), (32, 64, 128))
     [
         (3, 1024, 10, 512, (0.2,), (32,), 0.0),            # a head's SA1, SSG
         (3, 1024, 10, 512, *_MSG1, 0.0),                   # a head's SA1, MSG
+        (3, 512, 10, 128, (0.4,), (64,), 0.0),             # a head's SA2, SSG
         (3, 512, 10, 128, *_MSG2, 0.0),                    # a head's SA2, MSG
         (3, 512, 3, 128, *_MSG2, 0.0),                     # the classifier's SA2, MSG
         (2, 1000, 3, 512, *_MSG1, 0.0),                    # N no multiple of the step
@@ -116,7 +128,7 @@ _MSG2 = ((0.2, 0.4, 0.8), (32, 64, 128))
         (2, 512, 3, 64, (0.1, 0.2, 0.3, 0.4, 0.5), (4, 8, 16, 32, 64), 0.0),   # five scales
         (2, 4096, 3, 40, (0.3,), (600,), 0.0),             # the tile shrinks to 64 centroids
     ],
-    ids=["p10_ssg", "p10_msg_sa1", "p10_msg_sa2", "msg_sa2", "n1000", "ragged_s", "global_path",
+    ids=["p10_ssg", "p10_msg_sa1", "p10_ssg_sa2", "p10_msg_sa2", "msg_sa2", "n1000", "ragged_s", "global_path",
          "empty_three_scales", "any_p", "five_scales", "tile64"],
 )
 def test_ball_query_kernel_matches_plain_version_at_new_shapes(card, B, N, P, S, radii, ks, offset):
