@@ -53,6 +53,27 @@ Phases, any failure exits non-zero:
    checkpoint, held against evaluate; a request through a pipeline with
    the MSG classifier; eval throughput per model.
 
+8. the training path (cli.py train, train/loop.py train, train/steps.py
+   make_train_step): one train step of pointnet2_cls_ssg and of sign_msg
+   at batch 24 on the card against the same step on the CPU, from the
+   committed checkpoints, on the same batch of the generated dataset with
+   the same augmentation and dropout draws (made once on the CPU): loss,
+   metric and the updated BatchNorm statistics within TRAIN_TOL, every
+   gradient within TRAIN_TOL element by element or, where a max over a
+   group routes it otherwise (GRAD_REL_L2), within 1% of its norm, the
+   parameters after the Adam step within TRAIN_TOL but for those at Adam's
+   rounding floor (pre-BN biases, gradients smaller than twice the two
+   sides' difference), held to one step of the learning rate; FPS and the
+   ball query launched twice a
+   pointnet2_cls_ssg step and once a sign_msg step. Then the train command
+   end to end on the generated dataset: pointnet2_cls_ssg and the vanilla
+   rotation head for 2 epochs, each resumed from latest.pt for a third,
+   history.json with epochs 0, 1, 2, the classifier's loss falling, the
+   eval command on best.pt equal to evaluate; then training clouds/s and
+   peak device memory of pointnet2_cls_ssg at batch 24 and 256 (CUDA
+   events over spans of 2 s or more, median of 3, the split resident on the
+   card).
+
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -86,6 +107,17 @@ TOL = 1e-3
 FUSED_TOL = 1e-4
 # the MMA self-test: one 16x8x8 tile against the float64 product
 MMA_TOL = 1e-5
+# the train step on the card against the CPU: loss, metric, BN statistics,
+# parameters, and every gradient element where the tensor allows
+TRAIN_TOL = 1e-4
+# A gradient tensor that misses TRAIN_TOL element by element is held by its
+# relative L2 error instead. A max over a group passes its gradient to one
+# neighbour; where the two largest values of a group lie within the two
+# devices' rounding of each other, each device may pick another. At
+# sign_msg's 128-neighbour scale 8e-5 of the maxima are that close (CPU,
+# relative gap under 1e-5), and only that scale's five gradient tensors
+# missed TRAIN_TOL, by 1.1e-3 to 2.3e-3 of their norm (H100 against the CPU).
+GRAD_REL_L2 = 1e-2
 # published H100 SXM peaks (NVIDIA data sheet): HBM rate, f32 outside the
 # tensor cores, dense TF32 on them
 HBM_BYTES_PER_S = 3.35e12
@@ -905,6 +937,221 @@ def eval_phase(device, kernels: list[dict]) -> dict:
     return results
 
 
+TRAIN_BATCH = 24
+# model -> (committed experiment, FPS and ball-query launches per train step)
+TRAIN_STEP_MODELS = {"pointnet2_cls_ssg": ("classification/r3_pointnet2_cls_ssg", 2),
+                     "sign_msg": ("pose/r5_sign_msg", 1)}
+
+
+def train_step_check(device, name, experiment, per_step, data_path):
+    """One train step on the card against the same step on the CPU (see
+    the module docstring); returns the largest differences and the gradient
+    tensors held by GRAD_REL_L2."""
+    import torch
+
+    from pointnet_like_pose_estimation_tpu_torch.data import PoseDataset, load_dataset
+    from pointnet_like_pose_estimation_tpu_torch.kernels.ball_group import ball_query_multi
+    from pointnet_like_pose_estimation_tpu_torch.kernels.fps import fps
+    from pointnet_like_pose_estimation_tpu_torch.models import build_model, get_model_spec
+    from pointnet_like_pose_estimation_tpu_torch.nn import pre_bn_biases
+    from pointnet_like_pose_estimation_tpu_torch.train import (
+        TrainConfig,
+        draw_step,
+        load_checkpoint,
+        make_optimizer,
+        make_train_step,
+    )
+    from pointnet_like_pose_estimation_tpu_torch.train.loop import _device_data
+
+    ds = load_dataset(data_path, "train")
+    pick = np.linspace(0, len(ds) - 1, TRAIN_BATCH).astype(int)        # every class
+    cpu_batch = _device_data(PoseDataset(**{k: getattr(ds, k)[pick] for k in
+                                            ("points", "labels", "rot", "tran", "sign", "width")}), "cpu")
+    card_batch = {k: v.to(device) for k, v in cpu_batch.items()}
+    spec, cfg = get_model_spec(name), TrainConfig.for_model(name, batch_size=TRAIN_BATCH)
+    cpu_model, _ = load_checkpoint(os.path.join(ROOT, "log", experiment, "checkpoints", "best.msgpack"),
+                                   build_model(name))
+    card_model = copy.deepcopy(cpu_model).to(device)
+    before = {k: p.detach().clone() for k, p in cpu_model.named_parameters()}
+    draws = draw_step(cfg, cpu_model, cpu_batch, torch.Generator().manual_seed(31))   # made once
+    card_draws = {part: {k: v.to(device) for k, v in d.items()} for part, d in draws.items()}
+    step = make_train_step(spec, cfg)
+    f0, b0 = fps.launches, ball_query_multi.launches
+    card_out = step(card_model, make_optimizer(cfg, card_model.parameters())[0], card_batch, draws=card_draws)
+    torch.cuda.synchronize()
+    got = (fps.launches - f0, ball_query_multi.launches - b0)
+    check(got == (per_step, per_step), f"train step {name}: fps/ball_query launches {got}, want {per_step} each")
+    cpu_out = step(cpu_model, make_optimizer(cfg, cpu_model.parameters())[0], cpu_batch, draws=draws)
+
+    worst, by_norm = {}, {}
+
+    def close(what, a, b):
+        a, b = a.detach().cpu().double(), b.detach().double()
+        diff = float((a - b).abs().max()) if a.numel() else 0.0
+        group = what.split(" ")[0]
+        worst[group] = max(worst.get(group, 0.0), diff)
+        return bool(torch.allclose(a, b, rtol=TRAIN_TOL, atol=TRAIN_TOL)), diff
+
+    def must(what, a, b):
+        ok, diff = close(what, a, b)
+        check(ok, f"train step {name}: {what} on the card differs from the CPU (max {diff})")
+
+    for key in ("loss", "metric"):
+        must(key, card_out[key], cpu_out[key])
+    card_params = dict(card_model.named_parameters())
+    for k, p in cpu_model.named_parameters():
+        ok, diff = close(f"gradient {k}", card_params[k].grad, p.grad)
+        if not ok:
+            rel = float((card_params[k].grad.cpu() - p.grad).norm() / p.grad.norm())
+            by_norm[k] = {"max_abs_diff": diff, "rel_l2": rel}
+            check(rel <= GRAD_REL_L2, f"train step {name}: gradient {k} on the card differs from the CPU "
+                  f"(max {diff}, relative L2 {rel})")
+    card_state = card_model.state_dict()
+    for k, v in cpu_model.state_dict().items():
+        if k.endswith(("running_mean", "running_var")):
+            must(f"statistic {k}", card_state[k], v)
+    # Adam's first step is lr * g / (|g| + 1e-8): it follows the sign of g,
+    # so where the two gradients differ by more than half of |g| (and at the
+    # pre-BN biases, whose true gradient is 0) each side is held to one step
+    # of the learning rate from the start, elsewhere to TRAIN_TOL
+    noisy = pre_bn_biases(cpu_model)
+    lr, wd = cfg.learning_rate, cfg.weight_decay
+    for k, p in cpu_model.named_parameters():
+        card_g = card_params[k].grad.detach().cpu()
+        floor = (p.grad + wd * before[k]).abs() <= 1e-6 + 2 * (card_g - p.grad).abs()
+        if k in noisy:
+            floor[...] = True
+        card_p = card_params[k].detach().cpu()
+        for side in (card_p, p.detach()):
+            check(bool(((side - before[k]).abs()[floor] <= lr * 1.0001).all()),
+                  f"train step {name}: {k} moved more than the learning rate at Adam's rounding floor")
+        must(f"parameter {k}", card_p[~floor], p.detach()[~floor])
+    log(f"  train step {name} B={TRAIN_BATCH}: card matches the CPU (loss {float(cpu_out['loss']):.6f}; "
+        f"max abs diff {json.dumps(worst)}; gradients held by relative L2 instead: {json.dumps(by_norm)}); "
+        f"fps/ball_query launches {got}")
+    return {"loss": float(cpu_out["loss"]), "max_abs_diff": worst, "gradients_by_rel_l2": by_norm,
+            "fps_and_ball_query_launches": got[0]}
+
+
+def train_throughput(device, name, B, data) -> dict:
+    """Training clouds/s at batch B: train steps on batches drawn on the
+    card from the resident split, CUDA events around spans of 2 s or more,
+    median of 3; peak device memory over the spans."""
+    import torch
+
+    from pointnet_like_pose_estimation_tpu_torch.train import TrainConfig, build_state, make_train_step
+
+    cfg = TrainConfig.for_model(name, batch_size=B)
+    spec, state = build_state(cfg)                                         # default: cuda
+    step = make_train_step(spec, cfg)
+    n = data["labels"].shape[0]
+
+    def run(steps):
+        for _ in range(steps):
+            idx = torch.randint(0, n, (B,), generator=state.generator, device=device)
+            step(state.model, state.optimizer, {k: v[idx] for k, v in data.items()}, state.generator)
+
+    def span(steps) -> float:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        run(steps)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    run(3)
+    torch.cuda.synchronize()
+    steps = max(1, int(np.ceil(2000.0 / (span(5) / 5))))
+    torch.cuda.reset_peak_memory_stats()
+    spans = []
+    while len(spans) < 3:
+        ms = span(steps)
+        if ms < 2000.0:         # the calibration ran fast: lengthen the span and start over
+            steps, spans = int(np.ceil(steps * 2000.0 / ms)) + 1, []
+        else:
+            spans.append(ms)
+    ms = statistics.median(spans)
+    out = {"clouds_per_s": steps * B / (ms / 1e3), "ms_per_step": ms / steps, "steps_per_span": steps,
+           "span_ms": spans, "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20}
+    log(f"  train throughput {name} B={B}: {json.dumps(out)}")
+    return out
+
+
+def train_phase(device, kernels: list[dict]) -> dict:
+    """The training path; see the module docstring."""
+    import shutil
+
+    import torch
+
+    from pointnet_like_pose_estimation_tpu_torch import cli
+    from pointnet_like_pose_estimation_tpu_torch.data import load_dataset
+    from pointnet_like_pose_estimation_tpu_torch.kernels.ball_group import ball_query_multi
+    from pointnet_like_pose_estimation_tpu_torch.kernels.fps import fps
+    from pointnet_like_pose_estimation_tpu_torch.models import build_model
+    from pointnet_like_pose_estimation_tpu_torch.train import TrainConfig, evaluate, load_checkpoint
+    from pointnet_like_pose_estimation_tpu_torch.train.loop import _device_data
+
+    data_path = os.path.join(ROOT, "build", "chip_smoke_dataset.npz")       # the eval phase's
+    report = {"step": {}, "train_command": {}, "throughput": {}}
+    fps.launches = ball_query_multi.launches = 0
+    for name, (experiment, per_step) in TRAIN_STEP_MODELS.items():
+        report["step"][name] = train_step_check(device, name, experiment, per_step, data_path)
+
+    log_dir = os.path.join(ROOT, "build", "chip_smoke_train")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    train_ds, test = load_dataset(data_path, "train"), load_dataset(data_path, "test")
+    steps_per_epoch, eval_batches = len(train_ds) // TRAIN_BATCH, -(-len(test) // TRAIN_BATCH)
+    for name, per_step in (("pointnet2_cls_ssg", 2), ("rotation", 0)):
+        f0 = fps.launches
+        args = ["--model", name, "--data", data_path, "--batch-size", str(TRAIN_BATCH),
+                "--log-dir", log_dir, "--experiment", f"smoke_{name}"]
+        t0 = time.perf_counter()
+        for epochs in ("2", "3"):                   # the second call resumes from latest.pt
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(["train", *args, "--epochs", epochs])                # default: cuda
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        cfg = TrainConfig.for_model(name, batch_size=TRAIN_BATCH, log_dir=log_dir, experiment=f"smoke_{name}")
+        exp_dir = os.path.join(log_dir, "classification" if "cls" in name else "pose", f"smoke_{name}")
+        with open(os.path.join(exp_dir, "history.json")) as f:
+            history = json.load(f)
+        check([r["epoch"] for r in history] == [0, 1, 2], f"train {name}: history.json epochs "
+              f"{[r['epoch'] for r in history]}, want [0, 1, 2]")
+        losses = [r["train_loss"] for r in history]
+        check(all(np.isfinite(losses)), f"train {name}: non-finite loss {losses}")
+        want_fps = per_step * 3 * (steps_per_epoch + eval_batches)
+        check(fps.launches - f0 == want_fps, f"train {name}: {fps.launches - f0} FPS launches, want {want_fps}")
+        model, meta = load_checkpoint(os.path.join(exp_dir, "checkpoints", "best.pt"), build_model(name))
+        want = evaluate(cfg, model, test)
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            cli.main(["eval", *args])
+        from_cli = json.loads(printed.getvalue().strip().splitlines()[-1])
+        check(from_cli.pop("checkpoint_epoch") == meta["epoch"], f"eval of best.pt {name}: epoch")
+        check(set(from_cli) == set(want) and all(np.allclose(from_cli[k], want[k], rtol=1e-6, atol=1e-6)
+                                                  for k in want),
+              f"eval of best.pt {name}: the eval command printed {from_cli}, evaluate gave {want}")
+        report["train_command"][name] = {
+            "train_loss_by_epoch": losses, "test_metric_by_epoch": [r.get("test_metric") for r in history],
+            "best_epoch": meta["epoch"], "seconds_for_3_epochs_with_eval": seconds,
+            "seconds_per_epoch": [r["seconds"] for r in history], "fps_launches": fps.launches - f0}
+        log(f"  train command {name}: 2 epochs, then resumed for a third; train loss by epoch {losses}; "
+            f"test metric {report['train_command'][name]['test_metric_by_epoch']}; eval of best.pt "
+            f"(epoch {meta['epoch']}) equals evaluate")
+    losses = report["train_command"]["pointnet2_cls_ssg"]["train_loss_by_epoch"]
+    check(losses[2] < losses[0], f"pointnet2_cls_ssg: the train loss did not fall: {losses}")
+    launches = {"fps": fps.launches, "ball_query": ball_query_multi.launches}
+    check(launches["fps"] > 0 and launches["ball_query"] > 0, "the train path launched no kernel")
+    for k in kernels:
+        k["launches_by_path"]["train"] = launches.get(k["name"], 0)
+    report["launches"] = launches
+
+    data = _device_data(train_ds, device)
+    for B in (24, 256):
+        report["throughput"][f"pointnet2_cls_ssg B={B}"] = train_throughput(device, "pointnet2_cls_ssg", B, data)
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -969,10 +1216,13 @@ def main() -> int:
     log("eval phase")
     evals = eval_phase(device, kernels)
 
+    log("train phase")
+    training = train_phase(device, kernels)
+
     log(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     log(card)
-    print(json.dumps({"kernels": kernels, "latency": latency, "eval": evals, "card": card}),
-          flush=True)
+    print(json.dumps({"kernels": kernels, "latency": latency, "eval": evals, "train": training,
+                      "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -109,7 +109,9 @@ def ball_query_multi(
     points: torch.Tensor, centroids: torch.Tensor, radii, ks
 ) -> torch.Tensor:
     """Multi-scale ball query over all P channels of the points:
-    ``[B, S, sum(ks)]`` int32 indices into the N axis."""
+    ``[B, S, sum(ks)]`` int32 indices into the N axis. The indices carry no
+    gradient, so points and centroids are taken detached."""
+    points, centroids = points.detach(), centroids.detach()
     radii = tuple(float(r) for r in radii)
     ks = tuple(int(k) for k in ks)
     if len(radii) != len(ks) or not 0 < len(ks) <= MAX_SCALES or min(ks) <= 0:

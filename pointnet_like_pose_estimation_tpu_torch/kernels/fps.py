@@ -86,7 +86,9 @@ def fps_reference(
 
 def fps(points: torch.Tensor, num_samples: int, start_idx=0) -> torch.Tensor:
     """FPS over ``[B, N, C]`` float32 clouds; ``start_idx`` is an int or a
-    ``[B]`` tensor of first centroids. Returns ``[B, S]`` int32 indices."""
+    ``[B]`` tensor of first centroids. Returns ``[B, S]`` int32 indices.
+    The indices carry no gradient, so the points are taken detached."""
+    points = points.detach()
     if points.device.type == "cpu":
         return fps_reference(points, num_samples, start_idx)
     if points.device.type != "cuda":

@@ -4,8 +4,10 @@
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
+import torch
 from torch import nn
 
 from pointnet_like_pose_estimation_tpu_torch.models import losses
@@ -21,12 +23,14 @@ from pointnet_like_pose_estimation_tpu_torch.models.heads import (
     SSGHead,
     VanillaHead,
 )
+from pointnet_like_pose_estimation_tpu_torch.nn import TNet
 
 __all__ = [
     "ModelSpec",
     "MODEL_REGISTRY",
     "get_model_spec",
     "build_model",
+    "init_like_flax",
     "PointNetCls",
     "PointNet2ClsSSG",
     "PointNet2ClsMSG",
@@ -41,7 +45,7 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
-    """What the evaluation (and later the training) loop needs to run one model.
+    """What the evaluation and training loops need to run one model.
 
     Attributes:
       name: registry key.
@@ -138,3 +142,26 @@ def get_model_spec(name: str) -> ModelSpec:
 
 def build_model(name: str, num_classes: int = 7) -> nn.Module:
     return get_model_spec(name).make(num_classes)
+
+
+def init_like_flax(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialise ``model`` in place as flax initialises the JAX package's
+    models, drawing from ``generator`` (on the CPU): every Linear weight
+    ``lecun_normal`` (a normal of variance 1/fan_in truncated at two
+    standard deviations, its scale corrected for the truncation), every
+    bias 0, BatchNorm scale 1 and bias 0 with running mean 0 and variance
+    1, and each T-Net's output layer the identity (zero weight, the
+    flattened identity as bias). PyTorch's own Linear init is another
+    recipe."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.Linear):
+                std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
+                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
+                nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.BatchNorm1d):
+                m.reset_parameters()
+        for m in model.modules():
+            if isinstance(m, TNet):
+                m.reset_identity()
+    return model

@@ -61,8 +61,10 @@ class VanillaHead(nn.Module):
     ``sigmoid_sign`` returns (probability, hard sign); ``mean_residual``
     adds ``MeanMLP(mean)`` to the output, and the caller passes ``mean``.
     ``compat_dead_tnet`` holds (and ignores) a TNet after the second layer:
-    its parameters exist for parity with the reference, its output is never
-    used, so the forward skips it.
+    its parameters exist for parity with the reference and its output is
+    never used. In eval the forward skips it; in train mode it runs it,
+    without a graph, for the BatchNorm statistics it updates, as the JAX
+    head does.
     """
 
     def __init__(self, in_channels: int, out_dim: int = 3,
@@ -82,7 +84,11 @@ class VanillaHead(nn.Module):
             self.mean_mlp = MeanMLP()
 
     def forward(self, points: torch.Tensor, mean: torch.Tensor | None = None):
-        x = self.mlp_post(self.mlp_pre(points))
+        x = self.mlp_pre(points)
+        if self.training and hasattr(self, "dead_tnet"):
+            with torch.no_grad():
+                self.dead_tnet(x)
+        x = self.mlp_post(x)
         return _finish(self, self.head(x.amax(dim=-2)), mean)
 
 

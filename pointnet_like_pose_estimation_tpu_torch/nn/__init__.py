@@ -1,6 +1,12 @@
 """Layers of the port."""
 
-from pointnet_like_pose_estimation_tpu_torch.nn.layers import BatchNormF32, DenseHead, PointwiseMLP
+from pointnet_like_pose_estimation_tpu_torch.nn.layers import (
+    BatchNormF32,
+    DenseHead,
+    Dropout,
+    PointwiseMLP,
+    pre_bn_biases,
+)
 from pointnet_like_pose_estimation_tpu_torch.nn.set_abstraction import SetAbstraction, SetAbstractionMSG
 from pointnet_like_pose_estimation_tpu_torch.nn.tnet import (
     PointNetEncoder,
@@ -12,6 +18,7 @@ from pointnet_like_pose_estimation_tpu_torch.nn.tnet import (
 __all__ = [
     "BatchNormF32",
     "DenseHead",
+    "Dropout",
     "PointwiseMLP",
     "SetAbstraction",
     "SetAbstractionMSG",
@@ -19,4 +26,5 @@ __all__ = [
     "TNet",
     "apply_transform",
     "orthogonality_regularizer",
+    "pre_bn_biases",
 ]

@@ -11,6 +11,7 @@ checkpoint onto the ``state_dict`` key by key.
 
 from __future__ import annotations
 
+import re
 from typing import Sequence
 
 import torch
@@ -18,13 +19,23 @@ from torch import nn
 
 
 class BatchNormF32(nn.BatchNorm1d):
-    """BatchNorm over every non-channel axis of ``[..., C]``, in float32.
+    """BatchNorm over every non-channel axis of ``[..., C]``, in at least
+    float32 (a float64 input stays float64), as flax's ``BatchNorm``
+    computes it.
 
     ``momentum=0.1`` is flax's ``momentum=0.9``; eps is 1e-5 in both. In
-    eval it uses the running mean and variance, as the JAX package does.
-    Train mode keeps PyTorch's running-variance update (unbiased), where
-    flax uses the biased batch variance: a divergence for the training
-    slice to settle.
+    eval it uses the running mean and variance. In train mode it normalises
+    with the batch mean and the **biased** batch variance over every row,
+    and updates the running variance with that same biased variance, as
+    flax does (``nn.BatchNorm1d`` would use the unbiased one).
+
+    The variance is formed in two passes (``torch.var_mean``: the mean,
+    then the mean squared deviation from it). flax forms ``E[x^2] -
+    E[x]^2`` clipped at 0 (``use_fast_variance``); the two are equal but
+    for rounding, and the two-pass form keeps its digits where a channel's
+    spread is small beside its mean: with the one-pass form, reordering the
+    batch of a float32 train step of ``sign_msg`` (batch 24) moved its
+    gradients by up to 2.6e-4, with the two-pass form by 6e-6.
     """
 
     def __init__(self, num_features: int):
@@ -32,8 +43,42 @@ class BatchNormF32(nn.BatchNorm1d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = x.shape
-        y = super().forward(x.float().reshape(-1, shape[-1]))
+        x = x.to(torch.promote_types(x.dtype, torch.float32)).reshape(-1, shape[-1])
+        if not self.training:
+            return super().forward(x).reshape(shape)
+        var, mean = torch.var_mean(x, dim=0, unbiased=False)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)
+            self.num_batches_tracked += 1
+        y = (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
         return y.reshape(shape)
+
+
+class Dropout(nn.Module):
+    """flax's dropout with its random numbers supplied from outside: in train
+    mode a unit is kept where its uniform draw is at least ``rate`` and then
+    scaled by ``1 / (1 - rate)``, else zeroed. ``nn.Dropout`` takes no
+    generator, so the caller (the train step) draws the ``[B, features]``
+    uniforms from its own ``torch.Generator`` and sets ``uniforms`` before a
+    forward; a train-mode forward without them raises. To turn dropout off,
+    put this module in eval mode.
+    """
+
+    def __init__(self, rate: float, features: int):
+        super().__init__()
+        self.rate = rate
+        self.features = features
+        self.uniforms: torch.Tensor | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.uniforms is None:
+            raise RuntimeError("Dropout in train mode: no uniforms were supplied")
+        if self.uniforms.shape != x.shape:
+            raise ValueError(f"Dropout: uniforms {tuple(self.uniforms.shape)} for input {tuple(x.shape)}")
+        return torch.where(self.uniforms >= self.rate, x / (1.0 - self.rate), torch.zeros_like(x))
 
 
 class PointwiseMLP(nn.Module):
@@ -64,6 +109,9 @@ class DenseHead(nn.Module):
     - ``cls_v1``: relu(bn(fc)), then relu(bn(dropout(fc))) on the second;
     - ``cls_v2``: dropout(relu(bn(fc)));
     - ``pose``: relu(dropout(bn(fc))).
+
+    Each dropout site is its own ``Dropout`` (``drop_i`` after ``fc_i``),
+    since each draws its own uniforms.
     """
 
     def __init__(self, in_features: int, features: Sequence[int], style: str = "pose",
@@ -73,11 +121,12 @@ class DenseHead(nn.Module):
             raise ValueError(f"unknown DenseHead style {style!r}")
         self.style = style
         self.n = len(features)
-        self.drop = nn.Dropout(dropout_rate)
         for i, width in enumerate(features):
             self.add_module(f"fc_{i}", nn.Linear(in_features, width))
             if i < self.n - 1:
                 self.add_module(f"bn_{i}", BatchNormF32(width))
+                if style != "cls_v1" or i == 1:
+                    self.add_module(f"drop_{i}", Dropout(dropout_rate, width))
             in_features = width
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -87,9 +136,30 @@ class DenseHead(nn.Module):
                 break
             bn = getattr(self, f"bn_{i}")
             if self.style == "cls_v1":
-                x = torch.relu(bn(self.drop(x) if i == 1 else x))
+                x = torch.relu(bn(self.drop_1(x) if i == 1 else x))
             elif self.style == "cls_v2":
-                x = self.drop(torch.relu(bn(x)))
+                x = getattr(self, f"drop_{i}")(torch.relu(bn(x)))
             else:
-                x = torch.relu(self.drop(bn(x)))
+                x = torch.relu(getattr(self, f"drop_{i}")(bn(x)))
         return x
+
+
+def pre_bn_biases(model: nn.Module) -> set[str]:
+    """Parameter names of the biases of Linear layers whose output goes
+    straight into a BatchNorm (``dense_i``/``bn_i``, ``fc_i``/``bn_i``,
+    ``fc1``/``bn1``, ``conv3``/``bn3``; not ``cls_v1``'s ``fc_1``, whose
+    dropout sits between the two). Train-mode BatchNorm removes any
+    per-channel constant, so their true gradient is 0 and a backward gives
+    them rounding noise, which Adam turns into steps of up to the learning
+    rate with a random sign: two runs that agree elsewhere part there."""
+    names = set()
+    for prefix, m in model.named_modules():
+        for child, sub in m.named_children():
+            found = re.fullmatch(r"(dense|fc|conv)(_?\d+)", child)
+            if not isinstance(sub, nn.Linear) or found is None:
+                continue
+            if isinstance(m, DenseHead) and m.style == "cls_v1" and child == "fc_1":
+                continue
+            if isinstance(getattr(m, "bn" + found.group(2), None), BatchNormF32):
+                names.add(f"{prefix}.{child}.bias" if prefix else f"{child}.bias")
+    return names

@@ -17,7 +17,6 @@ BatchNorm treats every cluster on its own, so results are unchanged.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import numpy as np
 import torch
@@ -25,7 +24,7 @@ from torch import nn
 
 from pointnet_like_pose_estimation_tpu_torch.data.augment import splice_onehot
 from pointnet_like_pose_estimation_tpu_torch.models import build_model, get_model_spec
-from pointnet_like_pose_estimation_tpu_torch.nn import TNet
+from pointnet_like_pose_estimation_tpu_torch.models import init_like_flax as _lecun_normal_
 from pointnet_like_pose_estimation_tpu_torch.ops import (
     euler_rotation_matrix,
     farthest_point_sample,
@@ -50,19 +49,6 @@ class PipelineConfig:
     num_points: int = 1024
     num_classes: int = 7
     classifier: str = "pointnet2_cls_ssg"
-
-
-def _lecun_normal_(model: nn.Module, generator: torch.Generator) -> None:
-    """flax's default Dense init: truncated normal, variance 1/fan_in, zero
-    bias. A TNet's output layer keeps its identity start."""
-    for m in model.modules():
-        if isinstance(m, nn.Linear):
-            std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
-            nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
-            nn.init.zeros_(m.bias)
-    for m in model.modules():
-        if isinstance(m, TNet):
-            m.reset_identity()
 
 
 class GraspPipeline:

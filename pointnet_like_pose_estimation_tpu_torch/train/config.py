@@ -1,9 +1,13 @@
 """Typed training configuration (counterpart of ``train/config.py`` of the
 JAX package, field for field, so that a ``config.json`` written by either
-reads into both). The port computes in float32 only and its evaluation
-reads ``model``, ``num_classes``, ``batch_size``, ``loss_kind``,
-``compat_first3_mean``, ``log_dir`` and ``experiment``; the other fields
-are not read yet: training is not ported.
+reads into both).
+
+The port trains and evaluates in float32 only: another ``dtype`` raises, as
+do ``data_parallel`` and ``multihost`` (``parallel/`` is not ported).
+``epoch_chunk`` has no effect in the port: it bounds the time of one TPU
+dispatch in the JAX package, and the port launches its steps eagerly.
+``device_data`` keeps the train split on the device (one upload, batches
+gathered there); off, batches come from the host one by one.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ class TrainConfig:
     data_parallel: bool = False
     multihost: bool = False
     device_data: bool = True         # dataset resident on the device
-    epoch_chunk: int = 256
+    epoch_chunk: int = 256           # no effect in the port (a TPU dispatch bound)
     ckpt_every: int = 1
     # reference-compat quirk flags
     compat_first3_mean: bool = False  # mean of the first three points

@@ -1,7 +1,18 @@
-"""Evaluation and checkpoint loading (counterpart of ``_ckpt_dir``,
-``load_checkpoint``, ``_device_eval_batches``, ``_finalize_eval`` and
-``evaluate`` in ``train/loop.py`` of the JAX package). The training loop
-is not ported yet.
+"""Training loop, evaluation and checkpoints (counterpart of
+``train/loop.py`` of the JAX package).
+
+``train`` runs the reference's recipe on one device: the train split
+uploaded once, an epoch of eager train steps on it (``steps.
+make_epoch_runner``), one small copy to the host per epoch, an
+``evaluate`` of the test split after each epoch, the best checkpoint by the
+task's direction and the latest every ``cfg.ckpt_every`` epochs, a merged
+``history.json`` written atomically after every epoch, and SIGTERM/SIGINT
+answered by saving ``latest`` and leaving. A run resumes from ``latest.pt``.
+
+Checkpoints are the port's own full state (model, optimizer, scheduler,
+step generator, epoch) in ``best.pt`` and ``latest.pt`` beside the JAX
+package's ``best.msgpack`` in the same directory, which they never
+overwrite; ``load_checkpoint`` reads either.
 
 ``evaluate`` keeps the reference's metric conventions: instance and
 mean-per-class accuracy for classification and sign, per-axis and
@@ -16,22 +27,36 @@ cloud on its own).
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import logging
 import os
+import signal
+import time
 
 import numpy as np
 import torch
 from torch import nn
 
-from pointnet_like_pose_estimation_tpu_torch.data.dataset import PoseDataset
+from pointnet_like_pose_estimation_tpu_torch.data.dataset import PoseDataset, iter_batches
 from pointnet_like_pose_estimation_tpu_torch.models import ModelSpec, get_model_spec
 from pointnet_like_pose_estimation_tpu_torch.train.config import TrainConfig
-from pointnet_like_pose_estimation_tpu_torch.train.steps import _prepare_inputs
+from pointnet_like_pose_estimation_tpu_torch.train.state import TrainState, create_train_state
+from pointnet_like_pose_estimation_tpu_torch.train.steps import (
+    _prepare_inputs,
+    make_epoch_runner,
+    make_train_step,
+)
 from pointnet_like_pose_estimation_tpu_torch.utils.checkpoint import (
     from_flax_variables,
     load_flax_checkpoint,
 )
 from pointnet_like_pose_estimation_tpu_torch.utils.device import resolve_device
+
+log = logging.getLogger("plpe_torch.train")
+
+_HIGHER_IS_BETTER = {"classify": True, "sign": True, "rotation": False,
+                     "translation": False, "width": False}
 
 
 def _ckpt_dir(cfg: TrainConfig) -> str:
@@ -39,30 +64,74 @@ def _ckpt_dir(cfg: TrainConfig) -> str:
     return os.path.join(cfg.log_dir, task, cfg.experiment, "checkpoints")
 
 
+def save_checkpoint(path: str, state: TrainState, epoch: int, metric: float) -> None:
+    """Write the full train state to ``path`` (``*.pt``) and ``{"epoch",
+    "metric"}`` to ``path + ".json"``, atomically: each through a ``.tmp``
+    and ``os.replace``, the payload first, so that a reader who finds the
+    ``.json`` can trust the payload."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save({**state.state_dict(), "epoch": epoch}, tmp)
+    with open(tmp + ".json", "w") as f:
+        json.dump({"epoch": epoch, "metric": float(metric)}, f)
+    os.replace(tmp, path)
+    os.replace(tmp + ".json", path + ".json")
+
+
+def _read_payload(path: str) -> dict:
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def restore_checkpoint(path: str, state: TrainState) -> dict:
+    """Load a ``save_checkpoint`` file into ``state``; returns its meta."""
+    state.load_state_dict(_read_payload(path))
+    with open(path + ".json") as f:
+        return json.load(f)
+
+
 def load_checkpoint(path: str, model: nn.Module):
-    """Load the parameters and BatchNorm statistics of a full-state
-    checkpoint written by the JAX package (``best.msgpack``) into ``model``,
-    every key matched (``strict=True``). Parameters are stored as float32
-    whatever the run's compute dtype. Returns ``(model, meta)`` with the
-    ``{"epoch", "metric"}`` of the file beside it."""
-    model.load_state_dict(from_flax_variables(load_flax_checkpoint(path)), strict=True)
+    """Load the parameters and BatchNorm statistics of a checkpoint into
+    ``model``, every key matched (``strict=True``): the port's own ``*.pt``
+    (``save_checkpoint``) or the JAX package's full-state ``best.msgpack``,
+    whose parameters are stored as float32 whatever the run's compute
+    dtype. Returns ``(model, meta)`` with the ``{"epoch", "metric"}`` of the
+    file beside it."""
+    if path.endswith(".pt"):
+        weights = _read_payload(path)["model"]
+    else:
+        weights = from_flax_variables(load_flax_checkpoint(path))
+    model.load_state_dict(weights, strict=True)
     with open(path + ".json") as f:
         meta = json.load(f)
     return model, meta
 
 
-def _device_eval_batches(ds: PoseDataset, batch_size: int, device: torch.device) -> list[dict]:
-    """Upload the split once and cut it into batches of ``batch_size``
-    (views of the uploaded tensors; the last may be short)."""
+def best_checkpoint(cfg: TrainConfig) -> str:
+    """The experiment's best checkpoint: the port's ``best.pt`` where it
+    has one, else the JAX package's ``best.msgpack``."""
+    ckpt = _ckpt_dir(cfg)
+    path = os.path.join(ckpt, "best.pt")
+    return path if os.path.exists(path) else os.path.join(ckpt, "best.msgpack")
+
+
+def _device_data(ds: PoseDataset, device: torch.device) -> dict:
+    """The split's arrays as tensors on ``device``, uploaded once (labels
+    as int64, ``width`` as ``[M, 1]``)."""
     data = {
         "points": torch.from_numpy(np.ascontiguousarray(ds.points, np.float32)),
         "labels": torch.from_numpy(np.ascontiguousarray(ds.labels, np.int64)),
         "rot": torch.from_numpy(np.ascontiguousarray(ds.rot, np.float32)),
         "tran": torch.from_numpy(np.ascontiguousarray(ds.tran, np.float32)),
         "sign": torch.from_numpy(np.ascontiguousarray(ds.sign, np.float32)),
-        "width": torch.from_numpy(np.ascontiguousarray(ds.width, np.float32)[:, None]),
+        "width": torch.from_numpy(np.ascontiguousarray(ds.width, np.float32).reshape(-1, 1)),
     }
-    data = {k: v.to(device) for k, v in data.items()}
+    return {k: v.to(device) for k, v in data.items()}
+
+
+def _device_eval_batches(ds: PoseDataset, batch_size: int, device: torch.device) -> list[dict]:
+    """Upload the split once and cut it into batches of ``batch_size``
+    (views of the uploaded tensors; the last may be short)."""
+    data = _device_data(ds, device)
     return [{k: v[lo:lo + batch_size] for k, v in data.items()}
             for lo in range(0, len(ds), batch_size)]
 
@@ -116,21 +185,17 @@ def _finalize_eval(spec: ModelSpec, cfg: TrainConfig, sums: dict) -> dict:
     return result
 
 
-def evaluate(cfg: TrainConfig, model: nn.Module, ds: PoseDataset, device="cuda") -> dict:
-    """Full-split evaluation of ``model`` (moved to ``device``, eval mode)
-    at ``cfg.batch_size``, with the reference's metric conventions."""
-    device = resolve_device(device, "evaluate")
-    if cfg.dtype != "float32":
-        raise ValueError(f"evaluate: the port computes in float32 only, not {cfg.dtype}")
-    spec = get_model_spec(cfg.model)
-    model = model.to(device).eval()
+def _evaluate_batches(spec: ModelSpec, cfg: TrainConfig, model: nn.Module, batches: list[dict],
+                      device: torch.device) -> dict:
+    """``evaluate`` over batches already on ``device``."""
+    model.eval()
     C, D = cfg.num_classes, 1 if spec.task == "width" else 3
     shapes = {"n": (), "loss": (), "metric": (), "per_class_count": (C,)}
     shapes.update({"per_class_correct": (C,)} if spec.task in ("classify", "sign")
                   else {"per_class_abs_err": (C, D)})
     sums = {k: torch.zeros(shape, dtype=torch.float32, device=device) for k, shape in shapes.items()}
     with torch.inference_mode():
-        for batch in _device_eval_batches(ds, cfg.batch_size, device):
+        for batch in batches:
             inputs, target = _prepare_inputs(spec, cfg, batch, train=False)
             _accumulate(spec, cfg, sums, model(*inputs), target, batch["labels"])
         flat = torch.cat([v.reshape(-1) for v in sums.values()]).cpu().numpy()   # the one copy
@@ -140,3 +205,192 @@ def evaluate(cfg: TrainConfig, model: nn.Module, ds: PoseDataset, device="cuda")
         host[k] = flat[lo:lo + size].reshape(shape)
         lo += size
     return _finalize_eval(spec, cfg, host)
+
+
+def evaluate(cfg: TrainConfig, model: nn.Module, ds: PoseDataset, device="cuda") -> dict:
+    """Full-split evaluation of ``model`` (moved to ``device``, eval mode)
+    at ``cfg.batch_size``, with the reference's metric conventions."""
+    device = resolve_device(device, "evaluate")
+    if cfg.dtype != "float32":
+        raise ValueError(f"evaluate: the port computes in float32 only, not {cfg.dtype}")
+    spec = get_model_spec(cfg.model)
+    return _evaluate_batches(spec, cfg, model.to(device), _device_eval_batches(ds, cfg.batch_size, device),
+                             device)
+
+
+def build_state(cfg: TrainConfig, device="cuda") -> tuple[ModelSpec, TrainState]:
+    """The model spec and a fresh train state (``create_train_state``) for
+    ``cfg`` on ``device``."""
+    device = resolve_device(device, "build_state")
+    spec = get_model_spec(cfg.model)
+    return spec, create_train_state(cfg, spec.make(cfg.num_classes), device)
+
+
+class PreemptionGuard:
+    """SIGTERM and SIGINT set ``preempted``, which the loop reads before
+    every step and at every epoch's end: it then saves ``latest`` and
+    leaves. The previous handlers come back on exit; a second signal goes
+    to them (or to the default handler), so a hard kill still works."""
+
+    def __init__(self, signals=(signal.SIGTERM, signal.SIGINT)):
+        self._signals = signals
+        self._previous = {}
+        self.preempted = False
+
+    def _handle(self, signum, frame):
+        if self.preempted:  # second signal: defer to the original handler
+            handler = self._previous.get(signum)
+            if callable(handler):
+                handler(signum, frame)
+            else:
+                signal.signal(signum, signal.SIG_DFL)
+                signal.raise_signal(signum)
+            return
+        self.preempted = True
+        log.warning("preemption signal %s: will checkpoint and exit", signum)
+
+    def __enter__(self):
+        for s in self._signals:
+            try:
+                self._previous[s] = signal.signal(s, self._handle)
+            except ValueError:  # not the main thread: run unguarded
+                pass
+        return self
+
+    def __exit__(self, *exc):
+        for s, h in self._previous.items():
+            signal.signal(s, h)
+        return False
+
+
+def _check_supported(cfg: TrainConfig) -> None:
+    if cfg.dtype != "float32":
+        raise NotImplementedError(
+            f"train: dtype {cfg.dtype!r} is not ported yet; the port trains in float32 "
+            "(ROADMAP.md Queue 1 item 12, bf16 serving and training)")
+    if cfg.data_parallel or cfg.multihost:
+        raise NotImplementedError(
+            "train: data-parallel and multi-host training are not ported yet "
+            "(ROADMAP.md Queue 1 item 10, parallel/)")
+
+
+def _persist_history(hist_path: str, history: list[dict]) -> None:
+    """Merge this run's rows into ``history.json`` by epoch (this run wins),
+    written through a ``.tmp`` and ``os.replace``."""
+    if not history:
+        return
+    rows: dict[int, dict] = {}
+    if os.path.exists(hist_path):
+        try:
+            with open(hist_path) as f:
+                rows = {r["epoch"]: r for r in json.load(f)}
+        except (ValueError, KeyError, TypeError):
+            rows = {}
+    rows.update({r["epoch"]: r for r in history})
+    tmp = hist_path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump([rows[e] for e in sorted(rows)], f, indent=2)
+    os.replace(tmp, hist_path)
+
+
+def train(cfg: TrainConfig, train_ds: PoseDataset, test_ds: PoseDataset | None = None, *,
+          resume: bool = True, device="cuda") -> tuple[TrainState, list[dict]]:
+    """Run the training recipe of ``cfg`` on ``device`` (the card unless
+    ``device="cpu"``); returns ``(state, history)``, one row per epoch that
+    this call ran.
+
+    The train split lives on the device and each epoch draws a permutation
+    there (``steps.make_epoch_runner``); with ``cfg.device_data`` off, or a
+    split smaller than a batch, batches come from ``iter_batches`` on the
+    host, shuffled by a numpy generator seeded with ``cfg.seed``, as the
+    JAX package's per-step path. Either way a step leaves its loss and
+    metric on the device and the host reads them once per epoch.
+    """
+    _check_supported(cfg)
+    device = resolve_device(device, "train")
+    spec, state = build_state(cfg, device)
+    steps_per_epoch = len(train_ds) // cfg.batch_size
+    use_device_data = cfg.device_data and steps_per_epoch > 0
+    if use_device_data:
+        run_epoch = make_epoch_runner(spec, cfg, steps_per_epoch)
+        dev_train = _device_data(train_ds, device)
+    else:
+        train_step = make_train_step(spec, cfg)
+    eval_batches = (_device_eval_batches(test_ds, cfg.batch_size, device)
+                    if test_ds is not None and len(test_ds) else None)
+
+    ckpt = _ckpt_dir(cfg)
+    exp_dir = os.path.dirname(ckpt)
+    logs_dir = os.path.join(exp_dir, "logs")
+    os.makedirs(logs_dir, exist_ok=True)
+    with open(os.path.join(exp_dir, "config.json"), "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
+    fh = logging.FileHandler(os.path.join(logs_dir, f"{cfg.model}.log"))
+    fh.setFormatter(logging.Formatter("%(asctime)s %(message)s"))
+    log.addHandler(fh)
+
+    start_epoch, best_metric = 0, None
+    latest, best = os.path.join(ckpt, "latest.pt"), os.path.join(ckpt, "best.pt")
+    if resume and os.path.exists(latest):
+        start_epoch = restore_checkpoint(latest, state)["epoch"] + 1
+        if os.path.exists(best + ".json"):
+            with open(best + ".json") as f:
+                best_metric = json.load(f)["metric"]
+        log.info("resumed from epoch %d", start_epoch)
+
+    higher = _HIGHER_IS_BETTER[spec.task]
+    hist_path = os.path.join(exp_dir, "history.json")
+    history = []
+    rng = np.random.default_rng(cfg.seed)
+    guard = PreemptionGuard()
+    stop = lambda: guard.preempted  # noqa: E731
+    guard.__enter__()
+    try:
+        for epoch in range(start_epoch, cfg.epochs):
+            t0 = time.time()
+            if use_device_data:
+                sums, n = run_epoch(state.model, state.optimizer, dev_train, state.generator, stop)
+            else:
+                sums, n = torch.zeros(2, device=device), 0
+                for raw in iter_batches(train_ds, cfg.batch_size, rng=rng):
+                    if stop():
+                        break
+                    batch = {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in raw.items()}
+                    batch["labels"] = batch["labels"].long()
+                    out = train_step(state.model, state.optimizer, batch, state.generator)
+                    sums += torch.stack([out["loss"], out["metric"]])
+                    n += 1
+            if guard.preempted and n < steps_per_epoch:
+                # a partial epoch: saved under the previous epoch, so that a
+                # resumed run repeats this one whole
+                save_checkpoint(latest, state, epoch - 1, 0.0)
+                log.warning("preempted during epoch %d; latest saved, exiting", epoch)
+                break
+            loss_sum, metric_sum = sums.cpu().tolist()               # the one copy of the epoch
+            if n:       # StepLR counts epochs of steps, as optax counts steps
+                state.scheduler.step()
+            row = {"epoch": epoch, "train_loss": loss_sum / max(n, 1),
+                   "train_metric": metric_sum / max(n, 1), "seconds": time.time() - t0}
+            if eval_batches is not None:
+                ev = _evaluate_batches(spec, cfg, state.model, eval_batches, device)
+                row.update({f"test_{k}": v for k, v in ev.items()})
+                key = "test_instance_acc" if spec.task == "classify" else (
+                    "test_metric" if spec.task == "sign" else "test_mean_err")
+                cur = row[key]
+                if best_metric is None or (cur > best_metric if higher else cur < best_metric):
+                    best_metric = cur
+                    save_checkpoint(best, state, epoch, cur)
+            # a preempted run always saves the epoch it finished
+            if (epoch + 1) % cfg.ckpt_every == 0 or epoch == cfg.epochs - 1 or guard.preempted:
+                save_checkpoint(latest, state, epoch, row["train_loss"])
+            history.append(row)
+            _persist_history(hist_path, history)
+            log.info("%s", row)
+            if guard.preempted:
+                log.warning("preempted after epoch %d; exiting cleanly", epoch)
+                break
+    finally:
+        guard.__exit__()
+        log.removeHandler(fh)
+        fh.close()
+    return state, history

@@ -13,6 +13,16 @@ committed checkpoints.
 
 Run on a machine with a card: python3 scripts/profile_torch_serving.py
 
+    python3 scripts/profile_torch_serving.py --train pointnet2_cls_ssg [B ...]
+
+profiles train steps instead (train/steps.py make_train_step, weights
+initialised from seed 0, batches drawn on the card from the train split of
+a seeded dataset of 80 clouds a class, 560 in all, resident there) at each
+batch size B (24 and 256 by default): device time of one step by kernel
+group (the two CUDA kernels, matrix products, gather and scatter, the
+reductions of BatchNorm and max, the optimizer, other elementwise),
+launches, and the device busy share.
+
     python3 scripts/profile_torch_serving.py --latency-against build/parent
 
 times, without the profiler, the request latency (host clock around
@@ -65,7 +75,21 @@ def group(name: str) -> str:
     return "other"
 
 
-def profiled(fn, reps: int) -> dict:
+def train_group(name: str) -> str:
+    """``group`` with its "other" split the way a train step spends it."""
+    g = group(name)
+    if g != "other":
+        return g
+    if any(t in name for t in ("gather", "scatter", "index")):
+        return "gather / scatter (index_points and its backward)"
+    if "reduce" in name.lower():
+        return "reductions (BatchNorm statistics, max over groups)"
+    if "multi_tensor_apply" in name:
+        return "optimizer (foreach Adam)"
+    return "other elementwise"
+
+
+def profiled(fn, reps: int, grouping=group) -> dict:
     """``fn`` ``reps`` times under torch.profiler, after 3 warm-up calls."""
     for _ in range(3):
         fn()
@@ -84,7 +108,7 @@ def profiled(fn, reps: int) -> dict:
     device_ms = sum(t for t, _ in kernels.values())
     groups = {}
     for name, (t, n) in kernels.items():
-        g = groups.setdefault(group(name), [0.0, 0])
+        g = groups.setdefault(grouping(name), [0.0, 0])
         g[0] += t
         g[1] += n
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
@@ -144,9 +168,35 @@ def latency() -> None:
     print(json.dumps(report), flush=True)
 
 
+def train_profile(name: str, batch_sizes: list[int]) -> None:
+    """Train steps of ``name`` under torch.profiler at each batch size."""
+    from pointnet_like_pose_estimation_tpu_torch.data import build_dataset, load_dataset
+    from pointnet_like_pose_estimation_tpu_torch.train import TrainConfig, build_state, make_train_step
+    from pointnet_like_pose_estimation_tpu_torch.train.loop import _device_data
+
+    data = _device_data(load_dataset(build_dataset(80, seed=0), "train"), torch.device("cuda"))
+    n = data["labels"].shape[0]
+    report = {}
+    for B in batch_sizes:
+        cfg = TrainConfig.for_model(name, batch_size=B)
+        spec, state = build_state(cfg)
+        step = make_train_step(spec, cfg)
+
+        def one():
+            idx = torch.randint(0, n, (B,), generator=state.generator, device="cuda")
+            step(state.model, state.optimizer, {k: v[idx] for k, v in data.items()}, state.generator)
+
+        key = f"train step {name} B={B}"
+        report[key] = profiled(one, REQUESTS, train_group)
+        print(json.dumps({key: report[key]}, indent=1), flush=True)
+    print(json.dumps({"card": card_line(), "profile": report}))
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("profile_torch_serving: no CUDA device")
+    if sys.argv[1:2] == ["--train"]:
+        return train_profile(sys.argv[2], [int(b) for b in sys.argv[3:]] or [24, 256])
     if sys.argv[1:2] == ["--latency-against"]:
         me = [sys.executable, os.path.abspath(__file__), "--root"]
         sys.exit(max(subprocess.run([*me, root]).returncode

@@ -260,3 +260,50 @@ def test_fast_infer_on_card_matches_cpu(card, name):
     lp_cpu, pred_cpu = build(model, device="cpu")(x)
     assert torch.equal(pred_gpu.cpu(), pred_cpu)
     torch.testing.assert_close(lp_gpu.cpu(), lp_cpu, rtol=1e-3, atol=1e-3)
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """One train step of pointnet2_cls_ssg from the committed r3 checkpoint,
+    batch 24 of a seeded dataset built on the card, with the augmentation
+    and dropout draws made once on the CPU: the card's loss, gradients and
+    BatchNorm statistics within 1e-4 of the CPU's, and FPS and the ball
+    query launched twice each."""
+    import copy
+
+    from pointnet_like_pose_estimation_tpu_torch.data import build_dataset, load_dataset
+    from pointnet_like_pose_estimation_tpu_torch.models import build_model, get_model_spec
+    from pointnet_like_pose_estimation_tpu_torch.train import (
+        TrainConfig,
+        draw_step,
+        load_checkpoint,
+        make_optimizer,
+        make_train_step,
+    )
+    from pointnet_like_pose_estimation_tpu_torch.train.loop import _device_data
+
+    ds = load_dataset(build_dataset(5, seed=3), "train")                 # 28 clouds, all classes
+    cpu_batch = {k: v[:24] for k, v in _device_data(ds, torch.device("cpu")).items()}
+    card_batch = {k: v.to(card) for k, v in cpu_batch.items()}
+    name = "pointnet2_cls_ssg"
+    spec, cfg = get_model_spec(name), TrainConfig.for_model(name)
+    cpu_model, _ = load_checkpoint(
+        os.path.join(ROOT, "log/classification/r3_pointnet2_cls_ssg/checkpoints/best.msgpack"),
+        build_model(name))
+    card_model = copy.deepcopy(cpu_model).to(card)
+    draws = draw_step(cfg, cpu_model, cpu_batch, torch.Generator().manual_seed(5))
+    card_draws = {part: {k: v.to(card) for k, v in d.items()} for part, d in draws.items()}
+    step = make_train_step(spec, cfg)
+    f0, b0 = fps.launches, ball_query_multi.launches
+    got = step(card_model, make_optimizer(cfg, card_model.parameters())[0], card_batch, draws=card_draws)
+    torch.cuda.synchronize()
+    assert (fps.launches - f0, ball_query_multi.launches - b0) == (2, 2)
+    want = step(cpu_model, make_optimizer(cfg, cpu_model.parameters())[0], cpu_batch, draws=draws)
+    tol = dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got["loss"].cpu(), want["loss"], **tol)
+    card_params = dict(card_model.named_parameters())
+    for k, p in cpu_model.named_parameters():
+        torch.testing.assert_close(card_params[k].grad.cpu(), p.grad, **tol, msg=k)
+    card_state = card_model.state_dict()
+    for k, v in cpu_model.state_dict().items():
+        if k.endswith(("running_mean", "running_var")):
+            torch.testing.assert_close(card_state[k].cpu(), v, **tol, msg=k)

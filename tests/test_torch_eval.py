@@ -102,9 +102,18 @@ def test_eval_step_matches_jax(test_split, name):
 
 
 def test_training_inputs_are_not_ported_and_say_so(test_split):
+    """The train branch of ``_prepare_inputs`` is ported and asks for the
+    step's draws; what of training is still not ported (bf16, data-parallel)
+    raises and says so."""
+    from pointnet_like_pose_estimation_tpu_torch.train import train
+
     batch = {"points": torch.zeros(2, 8, 3), "labels": torch.zeros(2, dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="needs its draws"):
         _prepare_inputs(get_model_spec("pointnet_cls"), TrainConfig(), batch, train=True)
+    ds = PoseDataset(**dataclasses.asdict(test_split))
+    for kw in (dict(dtype="bfloat16"), dict(data_parallel=True)):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            train(TrainConfig(**kw), ds, device="cpu")
 
 
 def test_eval_command_reads_a_jax_checkpoint(test_split, tmp_path, capsys):
