@@ -1,17 +1,24 @@
-"""Command-line entry points of the port: ``generate``, ``train`` and
-``eval`` (the counterparts of the same subcommands of the JAX package's
-``cli.py``; ``infer`` and ``sweep`` are not ported yet).
+"""Command-line entry points of the port: ``generate``, ``train``, ``eval``
+and ``infer`` (the counterparts of the same subcommands of the JAX package's
+``cli.py``; ``sweep`` is not ported yet).
 
   python -m pointnet_like_pose_estimation_tpu_torch.cli generate --num-per-class 800
   python -m pointnet_like_pose_estimation_tpu_torch.cli train --model pointnet2_cls_ssg --epochs 40
   python -m pointnet_like_pose_estimation_tpu_torch.cli eval --model rotation --data data_cache/dataset.npz
+  python -m pointnet_like_pose_estimation_tpu_torch.cli infer --input scene.ply --checkpoints '{...}'
 
 All run on the card; ``--device cpu`` asks for the CPU. Without a card and
 without that option they raise. ``train`` takes the JAX command's flags but
 ``--data-parallel`` and writes ``best.pt`` and ``latest.pt`` under
 ``<log-dir>/<task>/<experiment>/checkpoints``; ``eval`` reads ``best.pt``
 there, or the JAX package's ``best.msgpack`` where the experiment has no
-``best.pt``.
+``best.pt``. ``train`` and ``eval`` compute in ``--dtype`` (float32 or
+bfloat16, BatchNorm in float32 either way). ``infer`` serves raw clouds
+(``.ply`` or comma-separated text; several stream through
+``GraspPipeline.stream``) with ``--config``, JSON overrides of
+``PipelineConfig`` (``dtype`` among them), and ``--checkpoints``, JSON of
+the five models' paths (flax ``.msgpack`` or the port's ``.pt``; seeded
+random weights without it), and prints one JSON line a cloud.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ def _add_common_args(p):
     p.add_argument("--log-dir", default="log")
     p.add_argument("--experiment", default=None)
     p.add_argument("--compat-first3-mean", action="store_true")
+    p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
 
 
@@ -38,7 +46,6 @@ def _add_train_args(p):
     p.add_argument("--learning-rate", type=float, default=None)
     p.add_argument("--optimizer", default="adam", choices=["adam", "sgd"])
     p.add_argument("--loss-reduction", default="mean", choices=["mean", "sum"])
-    p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--no-augment", action="store_true")
     p.add_argument("--compat-pm1-bce", action="store_true")
@@ -53,13 +60,13 @@ def _cfg_from_args(args):
         log_dir=args.log_dir,
         experiment=args.experiment or args.model,
         compat_first3_mean=args.compat_first3_mean,
+        dtype=args.dtype,
     )
     if args.cmd == "train":
         kw.update(
             epochs=args.epochs,
             optimizer=args.optimizer,
             loss_reduction=args.loss_reduction,
-            dtype=args.dtype,
             seed=args.seed,
             augment=not args.no_augment,
             compat_pm1_bce=args.compat_pm1_bce,
@@ -99,6 +106,35 @@ def cmd_eval(args):
     print(json.dumps(result))
 
 
+def cmd_infer(args):
+    import numpy as np
+
+    from pointnet_like_pose_estimation_tpu_torch.data.io_utils import load_cloud
+    from pointnet_like_pose_estimation_tpu_torch.pipeline import GraspPipeline, PipelineConfig
+
+    overrides = json.loads(args.config) if args.config else {}
+    if "clip_range" in overrides:
+        overrides["clip_range"] = tuple(overrides["clip_range"])
+    cfg = PipelineConfig(**overrides)
+    if args.checkpoints:
+        pipe = GraspPipeline.from_checkpoints(cfg, json.loads(args.checkpoints), device=args.device)
+    else:
+        pipe = GraspPipeline.from_random(cfg, device=args.device)
+    clouds = (load_cloud(path).astype(np.float32) for path in args.input)
+    for path, out in zip(args.input, pipe.stream(clouds)):
+        if out is None:
+            print(json.dumps({"input": path, "clusters": 0}))
+            continue
+        print(json.dumps({
+            "input": path,
+            "clusters": int(out["clusters"].shape[0]),
+            "pred_class": out["pred_class"].tolist(),
+            "rotation_deg": out["rotation_deg"].tolist(),
+            "translation": out["translation"].tolist(),
+            "width": out["width"].tolist(),
+        }))
+
+
 def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     p = argparse.ArgumentParser(prog="plpe-torch")
@@ -118,6 +154,13 @@ def main(argv=None):
     e = sub.add_parser("eval", help="evaluate the best checkpoint of an experiment")
     _add_common_args(e)
     e.set_defaults(fn=cmd_eval)
+
+    i = sub.add_parser("infer", help="serve raw clouds through the grasp pipeline")
+    i.add_argument("--input", nargs="+", required=True, help=".ply or comma-separated text clouds")
+    i.add_argument("--config", default=None, help="JSON overrides of PipelineConfig")
+    i.add_argument("--checkpoints", default=None, help="JSON {model key: checkpoint path}")
+    i.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    i.set_defaults(fn=cmd_infer)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -23,7 +23,7 @@ from pointnet_like_pose_estimation_tpu_torch.models.heads import (
     SSGHead,
     VanillaHead,
 )
-from pointnet_like_pose_estimation_tpu_torch.nn import TNet
+from pointnet_like_pose_estimation_tpu_torch.nn import TNet, set_compute_dtype
 
 __all__ = [
     "ModelSpec",
@@ -140,8 +140,11 @@ def get_model_spec(name: str) -> ModelSpec:
     return MODEL_REGISTRY[name]
 
 
-def build_model(name: str, num_classes: int = 7) -> nn.Module:
-    return get_model_spec(name).make(num_classes)
+def build_model(name: str, num_classes: int = 7, dtype: str = "float32") -> nn.Module:
+    """The registry model ``name``, its Linear layers computing in ``dtype``
+    (``"float32"`` or ``"bfloat16"``, the JAX package's ``TrainConfig.dtype``;
+    BatchNorm stays float32 either way)."""
+    return set_compute_dtype(get_model_spec(name).make(num_classes), dtype)
 
 
 def init_like_flax(model: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -19,6 +19,7 @@ from torch import nn
 from pointnet_like_pose_estimation_tpu_torch.nn import (
     BatchNormF32,
     DenseHead,
+    Linear,
     PointwiseMLP,
     SetAbstraction,
     SetAbstractionMSG,
@@ -32,9 +33,9 @@ class MeanMLP(nn.Module):
 
     def __init__(self):
         super().__init__()
-        self.fc1 = nn.Linear(3, 6)
+        self.fc1 = Linear(3, 6)
         self.bn1 = BatchNormF32(6)
-        self.fc2 = nn.Linear(6, 3)
+        self.fc2 = Linear(6, 3)
 
     def forward(self, mean: torch.Tensor) -> torch.Tensor:
         return self.fc2(torch.relu(self.bn1(self.fc1(mean))))

@@ -4,8 +4,10 @@ from pointnet_like_pose_estimation_tpu_torch.nn.layers import (
     BatchNormF32,
     DenseHead,
     Dropout,
+    Linear,
     PointwiseMLP,
     pre_bn_biases,
+    set_compute_dtype,
 )
 from pointnet_like_pose_estimation_tpu_torch.nn.set_abstraction import SetAbstraction, SetAbstractionMSG
 from pointnet_like_pose_estimation_tpu_torch.nn.tnet import (
@@ -19,6 +21,7 @@ __all__ = [
     "BatchNormF32",
     "DenseHead",
     "Dropout",
+    "Linear",
     "PointwiseMLP",
     "SetAbstraction",
     "SetAbstractionMSG",
@@ -27,4 +30,5 @@ __all__ = [
     "apply_transform",
     "orthogonality_regularizer",
     "pre_bn_biases",
+    "set_compute_dtype",
 ]

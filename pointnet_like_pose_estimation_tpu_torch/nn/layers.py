@@ -7,6 +7,11 @@ are ``nn.Linear`` layers, with BatchNorm over every other axis.
 Module names follow the flax parameter tree (``dense_0``, ``bn_0``,
 ``fc_0``...) so that ``utils.checkpoint.from_flax_variables`` maps a JAX
 checkpoint onto the ``state_dict`` key by key.
+
+The compute dtype is flax's ``dtype``: it reaches only the ``Linear``
+layers (``set_compute_dtype``). Parameters stay float32, and every
+BatchNorm, ReLU, dropout after a BatchNorm and max over a group runs in
+float32, as ``batch_norm_f32`` makes the JAX package run them.
 """
 
 from __future__ import annotations
@@ -16,6 +21,43 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.nn import functional as F
+
+# TrainConfig.dtype / PipelineConfig.dtype -> the Linear layers' compute dtype
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` with flax ``Dense``'s compute dtype. With
+    ``compute_dtype`` set, the input, weight and bias are cast to it, and
+    the product and the bias add are each rounded to it, as flax rounds its
+    ``dot_general`` and then ``y + bias``: the result is in the compute
+    dtype and the float32 parameters get float32 gradients through the
+    casts. Without it the layer is ``nn.Linear``.
+
+    The two roundings are kept because a bias folded into the product (one
+    rounding) is another function of the same inputs: it would part the
+    port from JAX by a bfloat16 ulp wherever the two round apart, on top of
+    the summation order that parts them already."""
+
+    compute_dtype: torch.dtype | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+
+
+def set_compute_dtype(model: nn.Module, dtype: str) -> nn.Module:
+    """Set the compute dtype (``"float32"`` or ``"bfloat16"``) of every
+    ``Linear`` of ``model``, in place."""
+    if dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"unknown compute dtype {dtype!r}; one of {sorted(COMPUTE_DTYPES)}")
+    for m in model.modules():
+        if isinstance(m, Linear):
+            m.compute_dtype = COMPUTE_DTYPES[dtype]
+    return model
 
 
 class BatchNormF32(nn.BatchNorm1d):
@@ -89,7 +131,7 @@ class PointwiseMLP(nn.Module):
         self.n = len(features)
         self.final_activation = final_activation
         for i, width in enumerate(features):
-            self.add_module(f"dense_{i}", nn.Linear(in_features, width))
+            self.add_module(f"dense_{i}", Linear(in_features, width))
             if i < self.n - 1 or final_activation:
                 self.add_module(f"bn_{i}", BatchNormF32(width))
             in_features = width
@@ -122,7 +164,7 @@ class DenseHead(nn.Module):
         self.style = style
         self.n = len(features)
         for i, width in enumerate(features):
-            self.add_module(f"fc_{i}", nn.Linear(in_features, width))
+            self.add_module(f"fc_{i}", Linear(in_features, width))
             if i < self.n - 1:
                 self.add_module(f"bn_{i}", BatchNormF32(width))
                 if style != "cls_v1" or i == 1:

@@ -8,12 +8,15 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from pointnet_like_pose_estimation_tpu_torch.nn.layers import BatchNormF32, PointwiseMLP
+from pointnet_like_pose_estimation_tpu_torch.nn.layers import BatchNormF32, Linear, PointwiseMLP
 
 
 def apply_transform(x: torch.Tensor, transform: torch.Tensor) -> torch.Tensor:
-    """``out[b, n, d] = sum_c x[b, n, c] * transform[b, d, c]``."""
-    return torch.matmul(x, transform.transpose(-1, -2))
+    """``out[b, n, d] = sum_c x[b, n, c] * transform[b, d, c]``, in the
+    promoted dtype of the two, as ``jnp.einsum`` promotes: a float32 cloud
+    and a bfloat16 transform give a float32 product."""
+    dt = torch.promote_types(x.dtype, transform.dtype)
+    return torch.matmul(x.to(dt), transform.to(dt).transpose(-1, -2))
 
 
 class TNet(nn.Module):
@@ -29,7 +32,7 @@ class TNet(nn.Module):
         self.k = k
         self.mlp = PointwiseMLP(k, [64, 128, 1024])
         self.fc = PointwiseMLP(1024, [512, 256])
-        self.out = nn.Linear(256, k * k)
+        self.out = Linear(256, k * k)
         self.reset_identity()
 
     def reset_identity(self) -> None:
@@ -65,7 +68,7 @@ class PointNetEncoder(nn.Module):
         self.conv1 = PointwiseMLP(in_channels, [64])
         self.tnet_feature = TNet(64)
         self.conv2 = PointwiseMLP(64, [128])
-        self.conv3 = nn.Linear(128, 1024)
+        self.conv3 = Linear(128, 1024)
         self.bn3 = BatchNormF32(1024)
 
     def forward(self, x: torch.Tensor):

@@ -1,17 +1,24 @@
-"""Grasp serving: clusters -> classify -> four pose heads -> grasp.
+"""Grasp serving: a raw cloud or its clusters -> classify -> four pose
+heads -> grasp (counterpart of ``pipeline/infer.py`` of the JAX package).
 
-Counterpart of ``GraspPipeline.infer_clusters`` in ``pipeline/infer.py`` of
-the JAX package. Each request resamples its clusters to ``num_points``
-(FPS when larger, tiling when smaller), normalizes them, classifies them
-with ``PipelineConfig.classifier`` (PointNet++ SSG by default), splices the
+``__call__`` and ``stream`` take a raw cloud through the distance cut, the
+plane and radius-outlier clean (``preprocess.clean_scene``), DBSCAN on the
+host and the scene inference; ``infer_clusters`` serves clusters cut
+elsewhere. A request resamples its clusters to ``num_points`` (FPS when
+larger, tiling when smaller), normalizes them, classifies them with
+``PipelineConfig.classifier`` (PointNet++ SSG by default), splices the
 predicted class as a one-hot onto every point, and runs the rotation, sign,
-translation and width heads.
+translation and width heads, in ``PipelineConfig.dtype``; every float
+output is float32.
 
-The JAX package pads the cluster count to a multiple of 4 and the cluster
-size to a multiple of 256 so that jit reuses its compiled programs. PyTorch
-runs eagerly, so the port drops both pads: they duplicate point 0, which
-FPS from start 0 never picks while real points remain, and eval-mode
-BatchNorm treats every cluster on its own, so results are unchanged.
+The JAX package pads the cluster count to a multiple of 4, the cluster
+size to a multiple of 256 and the scene to a multiple of 2048 so that jit
+reuses its compiled programs, and fuses the truncation FPS, the resampling
+and the five models of a scene into one program. PyTorch runs eagerly, so
+the port drops the pads and runs the same steps in order: the pads
+duplicate a cluster's first point, which FPS from it never picks while real
+points remain, and eval-mode BatchNorm treats every cluster on its own, so
+the results are those of ``cluster_point`` -> ``infer_clusters``.
 """
 
 from __future__ import annotations
@@ -25,12 +32,14 @@ from torch import nn
 from pointnet_like_pose_estimation_tpu_torch.data.augment import splice_onehot
 from pointnet_like_pose_estimation_tpu_torch.models import build_model, get_model_spec
 from pointnet_like_pose_estimation_tpu_torch.models import init_like_flax as _lecun_normal_
+from pointnet_like_pose_estimation_tpu_torch.nn import set_compute_dtype
 from pointnet_like_pose_estimation_tpu_torch.ops import (
     euler_rotation_matrix,
     farthest_point_sample,
     index_points,
     normalize_cloud,
 )
+from pointnet_like_pose_estimation_tpu_torch.pipeline import preprocess as pp
 from pointnet_like_pose_estimation_tpu_torch.utils.checkpoint import (
     from_flax_variables,
     load_flax_checkpoint,
@@ -42,17 +51,63 @@ MODEL_KEYS = ("classifier", "rotation", "sign", "translation", "width")
 
 @dataclasses.dataclass
 class PipelineConfig:
-    """The serving fields of the JAX package's PipelineConfig (float32).
-    ``classifier`` is a registry name of task 'classify' on the raw cloud:
-    ``pointnet2_cls_ssg``, ``pointnet2_cls_msg`` or ``pointnet_cls``."""
+    """The JAX package's PipelineConfig: the reference's capture thresholds
+    (distance cut, plane, outlier test, DBSCAN), the request size and the
+    models. ``classifier`` is a registry name of task 'classify' on the raw
+    cloud: ``pointnet2_cls_ssg``, ``pointnet2_cls_msg`` or ``pointnet_cls``.
+    ``dtype`` is the models' compute dtype, ``"float32"`` or
+    ``"bfloat16"`` (BatchNorm in float32 either way)."""
 
+    clip_range: tuple = (0.0, 2.0)
+    clip_axis: int = 2
+    plane_threshold: float = 0.006
+    plane_iterations: int = 1000
+    outlier_method: str = "radius"          # 'radius' | 'statistical' | 'none'
+    radius_nb_points: int = 200
+    radius: float = 0.05
+    stat_nb_neighbors: int = 120
+    stat_std_ratio: float = 0.1
+    eps: float = 0.03
+    min_points: int = 500
     num_points: int = 1024
     num_classes: int = 7
     classifier: str = "pointnet2_cls_ssg"
+    dtype: str = "float32"
+
+
+def _load_weights(path: str) -> dict:
+    """A ``state_dict`` from the port's ``*.pt`` or the JAX package's flax
+    ``*.msgpack``."""
+    if path.endswith(".pt"):
+        return torch.load(path, map_location="cpu", weights_only=True)["model"]
+    return from_flax_variables(load_flax_checkpoint(path))
+
+
+def _to_host(tensors: dict[str, torch.Tensor]):
+    """Start copying ``tensors`` to the host without waiting: pinned buffers
+    and an event on the card, the tensors themselves on the CPU. ``_wait``
+    returns the numpy arrays."""
+    first = next(iter(tensors.values()))
+    if first.device.type != "cuda":
+        return tensors, None
+    host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True) for k, v in tensors.items()}
+    for k, v in tensors.items():
+        host[k].copy_(v, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def _wait(handle) -> dict[str, np.ndarray]:
+    host, done = handle
+    if done is not None:
+        done.synchronize()
+    return {k: v.numpy() for k, v in host.items()}
 
 
 class GraspPipeline:
-    """The five models of a grasp request, on one device."""
+    """The five models of a grasp request, on one device, computing in
+    ``cfg.dtype`` (set on their Linear layers)."""
 
     def __init__(self, cfg: PipelineConfig, models: dict[str, nn.Module], device="cuda"):
         self.device = resolve_device(device, "GraspPipeline")
@@ -60,16 +115,15 @@ class GraspPipeline:
         if missing:
             raise KeyError(f"GraspPipeline: missing models {sorted(missing)}")
         self.cfg = cfg
-        self.models = {k: models[k].to(self.device).eval() for k in MODEL_KEYS}
+        self.models = {k: set_compute_dtype(models[k], cfg.dtype).to(self.device).eval() for k in MODEL_KEYS}
 
     @staticmethod
     def _make(cfg: PipelineConfig, key: str) -> nn.Module:
-        if key != "classifier":
-            return build_model(key, cfg.num_classes)
-        spec = get_model_spec(cfg.classifier)
-        if (spec.task, spec.input_kind) != ("classify", "xyz"):
+        name = cfg.classifier if key == "classifier" else key
+        spec = get_model_spec(name)
+        if key == "classifier" and (spec.task, spec.input_kind) != ("classify", "xyz"):
             raise ValueError(f"PipelineConfig.classifier: {cfg.classifier!r} does not classify raw clouds")
-        return spec.make(cfg.num_classes)
+        return build_model(name, cfg.num_classes)
 
     @classmethod
     def from_random(cls, cfg: PipelineConfig | None = None, seed: int = 0, device="cuda"):
@@ -84,18 +138,128 @@ class GraspPipeline:
 
     @classmethod
     def from_checkpoints(cls, cfg: PipelineConfig, checkpoint_paths: dict[str, str], device="cuda"):
-        """Load the JAX package's trained ``best.msgpack`` checkpoints."""
+        """Load trained checkpoints: the JAX package's ``best.msgpack`` or the
+        port's ``best.pt``, one per key of ``MODEL_KEYS``."""
         models = {}
         for key in MODEL_KEYS:
-            tree = load_flax_checkpoint(checkpoint_paths[key])
             models[key] = cls._make(cfg, key)
-            models[key].load_state_dict(from_flax_variables(tree), strict=True)
+            models[key].load_state_dict(_load_weights(checkpoint_paths[key]), strict=True)
         return cls(cfg, models, device)
 
-    def _resample(self, clusters: np.ndarray) -> torch.Tensor:
-        """``[K, M, C]`` host clusters -> ``[K, num_points, 3]`` on the device."""
-        K, M, _ = clusters.shape
-        xyz = torch.as_tensor(np.ascontiguousarray(clusters[..., :3], np.float32)).to(self.device)
+    # --- raw frames -------------------------------------------------------------------------
+
+    def preprocess(self, points: np.ndarray) -> np.ndarray | None:
+        """Raw cloud ``[N, C >= 3]`` -> clusters ``[K, min_size, C]``, or None
+        when too few points survive or DBSCAN finds no cluster."""
+        cfg, dev = self.cfg, self.device
+        pts = pp.clip_distance(points, cfg.clip_range, cfg.clip_axis)
+        if len(pts) < cfg.min_points:
+            return None
+        if cfg.outlier_method == "radius":
+            pts = pp.clean_scene(pts, cfg.plane_threshold, cfg.plane_iterations, cfg.radius_nb_points,
+                                 cfg.radius, device=dev)
+        else:
+            pts = pp.remove_plane(pts, distance_threshold=cfg.plane_threshold,
+                                  num_iterations=cfg.plane_iterations, device=dev)
+            if cfg.outlier_method == "statistical":
+                pts = pp.remove_statistical_outlier(pts, cfg.stat_nb_neighbors, cfg.stat_std_ratio,
+                                                    device=dev)
+        if len(pts) < cfg.min_points:
+            return None
+        return pp.cluster_point(pts, cfg.eps, cfg.min_points, device=dev)
+
+    def _infer_scene(self, pts: np.ndarray, labels: np.ndarray):
+        """A cleaned cloud and its DBSCAN labels -> a handle on the scene's
+        grasps (``_finish_scene`` reads it): the clusters truncated to the
+        smallest by FPS, resampled, and served, all launched without waiting
+        for the device. None when DBSCAN found no cluster."""
+        if labels.max() < 0:
+            return None
+        trunc, idx = pp.truncate_clusters(pp._xyz(pts, self.device), pp.cluster_groups(labels))
+        out = self._infer(self._resample_tensor(trunc))
+        return _to_host({**out, "cluster_idx": idx}), pts
+
+    @staticmethod
+    def _finish_scene(handle) -> dict[str, np.ndarray] | None:
+        if handle is None:
+            return None
+        copies, pts = handle
+        res = _wait(copies)
+        res["clusters"] = pts[res.pop("cluster_idx")]
+        return res
+
+    def __call__(self, points: np.ndarray) -> dict[str, np.ndarray] | None:
+        """Raw cloud -> grasps of every cluster, with ``clusters`` (the
+        truncated clusters, all channels), or None when no cluster is found."""
+        with torch.inference_mode():
+            cfg = self.cfg
+            if cfg.outlier_method != "radius":
+                clusters = self.preprocess(points)
+                if clusters is None:
+                    return None
+                return {**self.infer_clusters(clusters), "clusters": clusters}
+            pts = pp.clip_distance(points, cfg.clip_range, cfg.clip_axis)
+            if len(pts) < cfg.min_points:
+                return None
+            pts = pp.clean_scene(pts, cfg.plane_threshold, cfg.plane_iterations, cfg.radius_nb_points,
+                                 cfg.radius, device=self.device)
+            if len(pts) < cfg.min_points:
+                return None
+            return self._finish_scene(self._infer_scene(pts, pp.dbscan(pts, cfg.eps, cfg.min_points)))
+
+    def stream(self, scenes):
+        """Serve raw clouds in order, one result (or None) each, equal to
+        ``__call__``'s, with one frame of look-behind: frame t + 1's clean is
+        launched, then frame t's DBSCAN runs on the host while the card
+        works, then frame t - 1's results are read. Device results come back
+        through pinned buffers and an event, so that the host waits for that
+        frame's work only, not for all that is queued after it. The staged
+        clean (above ``preprocess.FUSED_CLEAN_MAX_POINTS`` points) waits for
+        the device between its stages. With another outlier method every
+        frame is a ``__call__``."""
+        cfg = self.cfg
+        if cfg.outlier_method != "radius":
+            for points in scenes:
+                yield self(points)
+            return
+
+        def start_clean(raw):
+            pts = pp.clip_distance(raw, cfg.clip_range, cfg.clip_axis)
+            if len(pts) < cfg.min_points:
+                return None
+            args = (pts, cfg.plane_threshold, cfg.plane_iterations, cfg.radius_nb_points, cfg.radius)
+            if len(pts) > pp.FUSED_CLEAN_MAX_POINTS:
+                return pp.clean_staged(*args, device=self.device), None
+            return pts, _to_host({"mask": pp.clean_masks_async(*args, device=self.device)})
+
+        def resolve(cur):
+            if cur is None:
+                return None
+            pts, mask = cur
+            cleaned = pts if mask is None else pts[_wait(mask)["mask"]]
+            if len(cleaned) < cfg.min_points:
+                return None
+            return self._infer_scene(cleaned, pp.dbscan(cleaned, cfg.eps, cfg.min_points))
+
+        with torch.inference_mode():
+            it = iter(scenes)
+            nxt = start_clean(raw) if (raw := next(it, None)) is not None else None
+            pending = []                                    # one frame of look-behind
+            while raw is not None:
+                cur = nxt
+                raw = next(it, None)
+                nxt = start_clean(raw) if raw is not None else None   # clean(t + 1) first
+                pending.append(resolve(cur))                # DBSCAN(t) while the card works
+                if len(pending) > 1:
+                    yield self._finish_scene(pending.pop(0))
+            for handle in pending:
+                yield self._finish_scene(handle)
+
+    # --- clusters ---------------------------------------------------------------------------
+
+    def _resample_tensor(self, xyz: torch.Tensor) -> torch.Tensor:
+        """``[K, M, 3]`` device clusters -> ``[K, num_points, 3]``."""
+        K, M, _ = xyz.shape
         n = self.cfg.num_points
         if M == n:
             return xyz
@@ -103,16 +267,21 @@ class GraspPipeline:
             return index_points(xyz, farthest_point_sample(xyz, n))
         return xyz.repeat(1, -(-n // M), 1)[:, :n]
 
+    def _resample(self, clusters: np.ndarray) -> torch.Tensor:
+        """``[K, M, C]`` host clusters -> ``[K, num_points, 3]`` on the device."""
+        xyz = torch.as_tensor(np.ascontiguousarray(clusters[..., :3], np.float32)).to(self.device)
+        return self._resample_tensor(xyz)
+
     def _infer(self, xyz: torch.Tensor) -> dict[str, torch.Tensor]:
         m = self.models
         mean = xyz.mean(dim=1)                                # translation residual input
         normed = normalize_cloud(xyz)
         log_probs, _, pred_class = m["classifier"](normed)
         spliced = splice_onehot(normed, pred_class, self.cfg.num_classes)
-        rot = m["rotation"](spliced)                          # [K, 3] euler deg, |z|
-        sign_prob, hard_sign = m["sign"](spliced)             # [K, 1] each
-        tran = m["translation"](spliced, mean)                # [K, 3]
-        width = m["width"](spliced)                           # [K, 1]
+        rot = m["rotation"](spliced).float()                  # [K, 3] euler deg, |z|
+        sign_prob, hard_sign = m["sign"](spliced)             # [K, 1] each, float32
+        tran = m["translation"](spliced, mean).float()        # [K, 3]
+        width = m["width"](spliced).float()                   # [K, 1]
         # recompose the signed z angle, then the grasp rotation matrix
         signed_rot = torch.cat([rot[:, :2], rot[:, 2:] * hard_sign], dim=1)
         return {

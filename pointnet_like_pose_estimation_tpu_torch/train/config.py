@@ -2,8 +2,9 @@
 JAX package, field for field, so that a ``config.json`` written by either
 reads into both).
 
-The port trains and evaluates in float32 only: another ``dtype`` raises, as
-do ``data_parallel`` and ``multihost`` (``parallel/`` is not ported).
+``dtype`` is the compute dtype of the Linear layers, ``"float32"`` or
+``"bfloat16"``; parameters, optimizer state and BatchNorm stay float32.
+``data_parallel`` and ``multihost`` raise (``parallel/`` is not ported).
 ``epoch_chunk`` has no effect in the port: it bounds the time of one TPU
 dispatch in the JAX package, and the port launches its steps eagerly.
 ``device_data`` keeps the train split on the device (one upload, batches
@@ -32,7 +33,7 @@ class TrainConfig:
     seed: int = 0
     log_dir: str = "log"
     experiment: str = "default"
-    dtype: str = "float32"           # the port computes in float32 only
+    dtype: str = "float32"           # compute dtype: 'float32' | 'bfloat16'
     augment: bool = True
     data_parallel: bool = False
     multihost: bool = False

@@ -39,7 +39,8 @@ import torch
 from torch import nn
 
 from pointnet_like_pose_estimation_tpu_torch.data.dataset import PoseDataset, iter_batches
-from pointnet_like_pose_estimation_tpu_torch.models import ModelSpec, get_model_spec
+from pointnet_like_pose_estimation_tpu_torch.models import ModelSpec, build_model, get_model_spec
+from pointnet_like_pose_estimation_tpu_torch.nn import set_compute_dtype
 from pointnet_like_pose_estimation_tpu_torch.train.config import TrainConfig
 from pointnet_like_pose_estimation_tpu_torch.train.state import TrainState, create_train_state
 from pointnet_like_pose_estimation_tpu_torch.train.steps import (
@@ -208,14 +209,14 @@ def _evaluate_batches(spec: ModelSpec, cfg: TrainConfig, model: nn.Module, batch
 
 
 def evaluate(cfg: TrainConfig, model: nn.Module, ds: PoseDataset, device="cuda") -> dict:
-    """Full-split evaluation of ``model`` (moved to ``device``, eval mode)
-    at ``cfg.batch_size``, with the reference's metric conventions."""
+    """Full-split evaluation of ``model`` (moved to ``device``, eval mode,
+    its Linear layers set to compute in ``cfg.dtype``, as the JAX package
+    evaluates the model it built in that dtype) at ``cfg.batch_size``, with
+    the reference's metric conventions."""
     device = resolve_device(device, "evaluate")
-    if cfg.dtype != "float32":
-        raise ValueError(f"evaluate: the port computes in float32 only, not {cfg.dtype}")
     spec = get_model_spec(cfg.model)
-    return _evaluate_batches(spec, cfg, model.to(device), _device_eval_batches(ds, cfg.batch_size, device),
-                             device)
+    model = set_compute_dtype(model, cfg.dtype).to(device)
+    return _evaluate_batches(spec, cfg, model, _device_eval_batches(ds, cfg.batch_size, device), device)
 
 
 def build_state(cfg: TrainConfig, device="cuda") -> tuple[ModelSpec, TrainState]:
@@ -223,7 +224,7 @@ def build_state(cfg: TrainConfig, device="cuda") -> tuple[ModelSpec, TrainState]
     ``cfg`` on ``device``."""
     device = resolve_device(device, "build_state")
     spec = get_model_spec(cfg.model)
-    return spec, create_train_state(cfg, spec.make(cfg.num_classes), device)
+    return spec, create_train_state(cfg, build_model(cfg.model, cfg.num_classes, cfg.dtype), device)
 
 
 class PreemptionGuard:
@@ -264,10 +265,6 @@ class PreemptionGuard:
 
 
 def _check_supported(cfg: TrainConfig) -> None:
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"train: dtype {cfg.dtype!r} is not ported yet; the port trains in float32 "
-            "(ROADMAP.md Queue 1 item 12, bf16 serving and training)")
     if cfg.data_parallel or cfg.multihost:
         raise NotImplementedError(
             "train: data-parallel and multi-host training are not ported yet "

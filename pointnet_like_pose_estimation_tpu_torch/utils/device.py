@@ -15,6 +15,8 @@ def resolve_device(device, owner: str) -> torch.device:
         # float32 means float32: TF32 would round the MLPs' inputs to 10 bits
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        # bfloat16 products accumulate in float32, as XLA's do
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     elif dev.type != "cpu":
         raise ValueError(f"{owner}: unsupported device {dev}")
     return dev

@@ -262,13 +262,59 @@ def test_fast_infer_on_card_matches_cpu(card, name):
     torch.testing.assert_close(lp_gpu.cpu(), lp_cpu, rtol=1e-3, atol=1e-3)
 
 
-def test_train_step_on_card_matches_cpu(card):
-    """One train step of pointnet2_cls_ssg from the committed r3 checkpoint,
-    batch 24 of a seeded dataset built on the card, with the augmentation
-    and dropout draws made once on the CPU: the card's loss, gradients and
-    BatchNorm statistics within 1e-4 of the CPU's, and FPS and the ball
-    query launched twice each."""
+def _seeded(name, seed):
+    """A registry model with seeded weights and nontrivial BatchNorm
+    statistics and affine parameters; a T-Net's output layer is the
+    identity plus small noise (as chip_smoke.py's seeded_model)."""
+    import math
+
+    from pointnet_like_pose_estimation_tpu_torch.models import build_model
+    from pointnet_like_pose_estimation_tpu_torch.nn import TNet
+
+    gen = torch.Generator().manual_seed(seed)
+    model = build_model(name)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Linear):
+                m.weight.normal_(0.0, 1.0 / math.sqrt(m.in_features), generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+            elif isinstance(m, torch.nn.BatchNorm1d):
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.normal_(0.0, 0.2, generator=gen)
+                m.running_mean.normal_(0.0, 0.3, generator=gen)
+                m.running_var.uniform_(0.5, 2.0, generator=gen)
+        for m in model.modules():
+            if isinstance(m, TNet):
+                m.reset_identity()
+                m.out.weight.normal_(0.0, 0.02, generator=gen)
+    return model
+
+
+# as chip_smoke.py's TIED_GRADIENTS: gradient tensors held by their relative
+# L2 error (twice the largest gap measured on the H100), because a max over a
+# group routes them to another member where its two largest values lie
+# within the two devices' rounding of each other; the pre-BN biases, whose
+# true gradient is 0, within 1e-4 of the model's largest gradient element
+TIED_GRADIENTS = {
+    "pointnet_cls": (("encoder.tnet_input.", "encoder.conv1.", "encoder.tnet_feature.", "encoder.conv2.",
+                      "encoder.conv3."), 1.5e-2),
+    "rotation_ssg": (("sa1.", "sa2.", "sa_global.mlp.dense_0.", "sa_global.mlp.bn_0.", "sa_global.mlp.dense_1.",
+                      "sa_global.mlp.bn_1.", "head.fc_2.weight"), 1.5e-2),
+}
+
+
+@pytest.mark.parametrize("name,launches", [("pointnet2_cls_ssg", 2), ("pointnet_cls", 0), ("rotation_ssg", 2)])
+def test_train_step_on_card_matches_cpu(card, name, launches):
+    """One train step at batch 24 of a seeded dataset built on the card,
+    with the augmentation and dropout draws made once on the CPU:
+    pointnet2_cls_ssg from the committed r3 checkpoint, pointnet_cls (its
+    T-Nets and the orthogonality penalty) and rotation_ssg (the SSG head on
+    10 channels) from seeded weights. The card's loss, gradients (but those
+    of TIED_GRADIENTS) and BatchNorm statistics within 1e-4 of the CPU's, and
+    FPS and the ball query launched ``launches`` times each."""
     import copy
+
+    from pointnet_like_pose_estimation_tpu_torch.nn import pre_bn_biases
 
     from pointnet_like_pose_estimation_tpu_torch.data import build_dataset, load_dataset
     from pointnet_like_pose_estimation_tpu_torch.models import build_model, get_model_spec
@@ -284,11 +330,13 @@ def test_train_step_on_card_matches_cpu(card):
     ds = load_dataset(build_dataset(5, seed=3), "train")                 # 28 clouds, all classes
     cpu_batch = {k: v[:24] for k, v in _device_data(ds, torch.device("cpu")).items()}
     card_batch = {k: v.to(card) for k, v in cpu_batch.items()}
-    name = "pointnet2_cls_ssg"
     spec, cfg = get_model_spec(name), TrainConfig.for_model(name)
-    cpu_model, _ = load_checkpoint(
-        os.path.join(ROOT, "log/classification/r3_pointnet2_cls_ssg/checkpoints/best.msgpack"),
-        build_model(name))
+    if name == "pointnet2_cls_ssg":
+        cpu_model, _ = load_checkpoint(
+            os.path.join(ROOT, "log/classification/r3_pointnet2_cls_ssg/checkpoints/best.msgpack"),
+            build_model(name))
+    else:
+        cpu_model = _seeded(name, 40)
     card_model = copy.deepcopy(cpu_model).to(card)
     draws = draw_step(cfg, cpu_model, cpu_batch, torch.Generator().manual_seed(5))
     card_draws = {part: {k: v.to(card) for k, v in d.items()} for part, d in draws.items()}
@@ -296,14 +344,46 @@ def test_train_step_on_card_matches_cpu(card):
     f0, b0 = fps.launches, ball_query_multi.launches
     got = step(card_model, make_optimizer(cfg, card_model.parameters())[0], card_batch, draws=card_draws)
     torch.cuda.synchronize()
-    assert (fps.launches - f0, ball_query_multi.launches - b0) == (2, 2)
+    assert (fps.launches - f0, ball_query_multi.launches - b0) == (launches, launches)
     want = step(cpu_model, make_optimizer(cfg, cpu_model.parameters())[0], cpu_batch, draws=draws)
     tol = dict(rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(got["loss"].cpu(), want["loss"], **tol)
     card_params = dict(card_model.named_parameters())
+    tied, tied_bound = TIED_GRADIENTS.get(name, ((), 0.0))
+    noisy = pre_bn_biases(cpu_model)
+    scale = max(1.0, max(float(p.grad.abs().max()) for p in cpu_model.parameters()))
+    missed = {}
     for k, p in cpu_model.named_parameters():
-        torch.testing.assert_close(card_params[k].grad.cpu(), p.grad, **tol, msg=k)
+        g = card_params[k].grad.cpu()
+        if torch.allclose(g, p.grad, **tol) or (k in noisy and float((g - p.grad).abs().max()) <= 1e-4 * scale):
+            continue
+        rel = float((g - p.grad).norm() / p.grad.norm())
+        if not (k.startswith(tied) and k not in noisy and rel <= tied_bound):
+            missed[k] = (float((g - p.grad).abs().max()), rel)
+    assert not missed, f"gradients (max abs, relative L2) beyond 1e-4: {missed}"
     card_state = card_model.state_dict()
     for k, v in cpu_model.state_dict().items():
         if k.endswith(("running_mean", "running_var")):
             torch.testing.assert_close(card_state[k].cpu(), v, **tol, msg=k)
+
+
+def test_frame_on_card_matches_cpu(card):
+    """The raw-frame path on the replay scene: the cleaned points equal the
+    CPU's bit for bit (every distance rounded term by term), and the grasps
+    of ``__call__`` equal the CPU's to 1e-3, classes exactly."""
+    from pointnet_like_pose_estimation_tpu_torch.data.io_utils import load_ply
+    from pointnet_like_pose_estimation_tpu_torch.pipeline import GraspPipeline, PipelineConfig
+    from pointnet_like_pose_estimation_tpu_torch.pipeline import preprocess as pp
+
+    scene = load_ply(os.path.join(ROOT, "tests", "fixtures", "scene_table2obj.ply")).astype(np.float32)
+    pts = pp.clip_distance(scene, (-1.0, 0.0), 2)
+    kw = dict(radius_nb_points=60, radius=0.03)
+    np.testing.assert_array_equal(pp.clean_scene(pts, **kw, device="cuda"),
+                                  pp.clean_scene(pts, **kw, device="cpu"))
+    cfg = PipelineConfig(clip_range=(-1.0, 0.0), min_points=200, radius_nb_points=60, radius=0.03, eps=0.04)
+    gpu = GraspPipeline.from_random(cfg, seed=1, device="cuda")(scene)
+    cpu = GraspPipeline.from_random(cfg, seed=1, device="cpu")(scene)
+    np.testing.assert_array_equal(gpu["pred_class"], cpu["pred_class"])
+    np.testing.assert_array_equal(gpu["clusters"], cpu["clusters"])
+    for k in ("log_probs", "rotation_deg", "sign_prob", "translation", "width"):
+        np.testing.assert_allclose(gpu[k], cpu[k], rtol=1e-3, atol=1e-3, err_msg=k)

@@ -103,17 +103,19 @@ def test_eval_step_matches_jax(test_split, name):
 
 def test_training_inputs_are_not_ported_and_say_so(test_split):
     """The train branch of ``_prepare_inputs`` is ported and asks for the
-    step's draws; what of training is still not ported (bf16, data-parallel)
-    raises and says so."""
+    step's draws; what of training is still not ported (data-parallel)
+    raises and says so, and a compute dtype other than float32 and
+    bfloat16 raises."""
     from pointnet_like_pose_estimation_tpu_torch.train import train
 
     batch = {"points": torch.zeros(2, 8, 3), "labels": torch.zeros(2, dtype=torch.long)}
     with pytest.raises(ValueError, match="needs its draws"):
         _prepare_inputs(get_model_spec("pointnet_cls"), TrainConfig(), batch, train=True)
     ds = PoseDataset(**dataclasses.asdict(test_split))
-    for kw in (dict(dtype="bfloat16"), dict(data_parallel=True)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            train(TrainConfig(**kw), ds, device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        train(TrainConfig(data_parallel=True), ds, device="cpu")
+    with pytest.raises(ValueError, match="unknown compute dtype"):
+        train(TrainConfig(dtype="float16"), ds, device="cpu")
 
 
 def test_eval_command_reads_a_jax_checkpoint(test_split, tmp_path, capsys):
@@ -149,8 +151,8 @@ def test_evaluate_and_eval_command_default_to_the_card(test_split, tmp_path):
         evaluate(cfg, build_model("width"), ds)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["generate", "--num-per-class", "1", "--out", str(tmp_path / "x.npz")])
-    with pytest.raises(ValueError, match="float32 only"):
-        evaluate(dataclasses.replace(cfg, dtype="bfloat16"), build_model("width"), ds, device="cpu")
+    with pytest.raises(ValueError, match="unknown compute dtype"):
+        evaluate(dataclasses.replace(cfg, dtype="float16"), build_model("width"), ds, device="cpu")
 
 
 @pytest.mark.parametrize(

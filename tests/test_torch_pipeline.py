@@ -95,23 +95,53 @@ def test_from_random_serves_on_cpu():
     assert all(np.isfinite(v).all() for v in out.values())
 
 
-def test_entry_points_default_to_the_card():
-    """No card and no device='cpu': the pipeline raises, it never carries on
-    on the CPU."""
+def test_entry_points_default_to_the_card(tmp_path):
+    """No card and no device='cpu': the pipeline, the raw-frame stages and
+    the infer command raise, they never carry on on the CPU."""
     import torch
+
+    from pointnet_like_pose_estimation_tpu_torch import cli
+    from pointnet_like_pose_estimation_tpu_torch.pipeline import (
+        CameraIntrinsics,
+        clean_scene,
+        cluster_point,
+        deproject_depth,
+        remove_plane,
+    )
 
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        GraspPipeline.from_random(seed=0)
+    cloud = np.random.default_rng(0).uniform(-1, 0, (600, 3)).astype(np.float32)
+    for call in (lambda: GraspPipeline.from_random(seed=0),
+                 lambda: deproject_depth(np.ones((4, 4)), CameraIntrinsics()),
+                 lambda: clean_scene(cloud), lambda: remove_plane(cloud),
+                 lambda: cluster_point(cloud, 0.1, 10),
+                 lambda: cli.main(["infer", "--input", os.path.join(ROOT, "tests", "fixtures",
+                                                                    "scene_table2obj.ply")])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_port_imports_no_jax():
+    """No module of the port, and not chip_smoke.py, imports JAX, flax or the
+    JAX package: the package is walked and ``cli infer`` runs in a fresh
+    interpreter, and chip_smoke.py's imports are read from its source."""
+    import ast
+
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    roots = {a.name.split(".")[0] for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
+    roots |= {n.module.split(".")[0] for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module}
+    assert not roots & {"jax", "flax", "jaxlib", "pointnet_like_pose_estimation_tpu"}, roots
     code = (
         "import sys, pkgutil, importlib\n"
         "import pointnet_like_pose_estimation_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "from pointnet_like_pose_estimation_tpu_torch import cli\n"
+        "cli.main(['infer', '--input', 'tests/fixtures/scene_table2obj.ply', '--device', 'cpu',\n"
+        "          '--config', '{\"clip_range\": [-1, 0], \"min_points\": 200, \"radius_nb_points\": 60,'\n"
+        "          ' \"radius\": 0.03, \"eps\": 0.04, \"num_points\": 128}'])\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'jaxlib',\n"
         "       'pointnet_like_pose_estimation_tpu')]\n"
         "assert not bad, bad\n"
@@ -119,4 +149,4 @@ def test_port_imports_no_jax():
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
-    assert res.returncode == 0 and "clean" in res.stdout, res.stderr
+    assert res.returncode == 0 and "clean" in res.stdout and '"clusters": 2' in res.stdout, res.stderr

@@ -8,6 +8,15 @@ are the published ones; only the point count is narrowed (N = 128, so the
 512 and 128 centroids of the set-abstraction levels repeat points, on both
 sides alike). Floats agree to rtol = atol = 1e-4 (float32 products summed
 in another order), classes and hard signs exactly.
+
+In bfloat16 (``dtype="bfloat16"`` on both sides) each model is held to
+JAX's bfloat16 outputs at ``BF16_TOL`` and, against JAX's float32 outputs,
+to within twice JAX's own bfloat16 gap (``assert_bf16_close``). Measured on
+these inputs: the port's bfloat16 outputs equal JAX's bit for bit for 14
+of the 19 models; elsewhere they part by at most 1.9e-3
+(``pointnet2_cls_msg``'s global feature, 2 of 2048 values) and 3.0e-3
+relative (``rotation_msg``), where the two libraries' float32
+accumulations of a bfloat16 product round to neighbouring bfloat16 values.
 """
 
 import flax
@@ -29,6 +38,8 @@ from pointnet_like_pose_estimation_tpu_torch.pipeline.infer import _lecun_normal
 from pointnet_like_pose_estimation_tpu_torch.utils.checkpoint import from_flax_variables
 
 B, N, NUM_CLASSES, TOL = 2, 128, 7, 1e-4
+# the port's bfloat16 against JAX's: half a bfloat16 ulp (2^-8) at 1
+BF16_TOL = dict(rtol=4e-3, atol=4e-3)
 
 
 def perturbed_variables(name, seed=0):
@@ -83,6 +94,52 @@ def assert_outputs_match(name, got, want):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
 
 
+def _f32(a) -> np.ndarray:
+    return np.asarray(a.float() if isinstance(a, torch.Tensor) else jnp.asarray(a).astype(jnp.float32))
+
+
+def assert_bf16_close(got16, want16, want32, what=""):
+    """The port's bfloat16 output against JAX's bfloat16 output (BF16_TOL)
+    and against JAX's float32 output: its largest gap from float32 stays
+    within twice JAX's own, or within BF16_TOL's atol where JAX's gap is
+    smaller than that."""
+    got16, want16, want32 = _f32(got16), _f32(want16), _f32(want32)
+    np.testing.assert_allclose(got16, want16, **BF16_TOL, err_msg=what)
+    port_gap, jax_gap = np.abs(got16 - want32).max(), np.abs(want16 - want32).max()
+    assert port_gap <= max(2 * jax_gap, BF16_TOL["atol"]), (what, port_gap, jax_gap)
+
+
+def jax_bf16_model(name):
+    """The JAX registry model ``name`` computing in bfloat16."""
+    spec = JAX_REGISTRY[name]
+    kw = {"num_classes": NUM_CLASSES} if spec.task == "classify" else {}
+    return spec.make(dtype=jnp.bfloat16, **kw)
+
+
+def assert_bf16_outputs_match(name, got, want16, want32):
+    """Floats by ``assert_bf16_close`` and in JAX's dtype; classes and hard
+    signs equal wherever JAX's bfloat16 decision is not within 1e-2 (a
+    bfloat16 ulp at 1) of a tie."""
+    task = get_model_spec(name).task
+    if task == "classify":
+        top2 = np.sort(_f32(want16[0]), axis=-1)[:, -2:]
+        sure = top2[:, 1] - top2[:, 0] > 1e-2
+        assert_bf16_close(got[0], want16[0], want32[0], f"{name} log-probabilities")
+        if got[1].is_floating_point():      # the global feature or the feature transform
+            assert_bf16_close(got[1], want16[1], want32[1], f"{name} aux")
+            assert str(got[1].dtype) == f"torch.{want16[1].dtype}"
+        else:                               # pose_classify's (-1)**choice
+            np.testing.assert_array_equal(got[1].numpy()[sure], np.asarray(want16[1])[sure])
+        np.testing.assert_array_equal(got[2].numpy()[sure], np.asarray(want16[2])[sure])
+    elif task == "sign":
+        assert_bf16_close(got[0], want16[0], want32[0], f"{name} probability")
+        sure = np.abs(_f32(want16[0]) - 0.5) > 1e-2
+        np.testing.assert_array_equal(got[1].numpy()[sure], np.asarray(want16[1])[sure])
+    else:
+        assert_bf16_close(got, want16, want32, name)
+        assert got.dtype == torch.bfloat16 and str(want16.dtype) == "bfloat16"
+
+
 def test_registry_has_the_jax_package_names_and_kinds():
     assert sorted(MODEL_REGISTRY) == sorted(JAX_REGISTRY) and len(MODEL_REGISTRY) == 19
     for name, spec in MODEL_REGISTRY.items():
@@ -92,15 +149,21 @@ def test_registry_has_the_jax_package_names_and_kinds():
         build_model("no_such_model")
 
 
-@pytest.mark.parametrize("name", sorted(JAX_REGISTRY))
-def test_model_matches_jax_in_eval_mode(name):
+# float32 cases keep the bare model name as their id
+@pytest.mark.parametrize("name,dtype", [pytest.param(n, d, id=n if d == "float32" else f"{n}-{d}")
+                                        for d in ("float32", "bfloat16") for n in sorted(JAX_REGISTRY)])
+def test_model_matches_jax_in_eval_mode(name, dtype):
     jmodel, variables = perturbed_variables(name)
-    tmodel = build_model(name, NUM_CLASSES).eval()
+    tmodel = build_model(name, NUM_CLASSES, dtype).eval()
     tmodel.load_state_dict(from_flax_variables(variables), strict=True)
     inputs = model_inputs(name)
     want = jmodel.apply(variables, *map(jnp.asarray, inputs), train=False)
     with torch.no_grad():
         got = tmodel(*map(torch.from_numpy, inputs))
+    if dtype == "bfloat16":
+        want16 = jax_bf16_model(name).apply(variables, *map(jnp.asarray, inputs), train=False)
+        assert_bf16_outputs_match(name, got, want16, want)
+        return
     assert_outputs_match(name, got, want)
     if name == "pose_classify":
         np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))     # (-1)**choice
