@@ -61,11 +61,11 @@ Phases, any failure exits non-zero:
    generated dataset with
    the same augmentation and dropout draws (made once on the CPU): loss,
    metric and the updated BatchNorm statistics within TRAIN_TOL, every
-   gradient within TRAIN_TOL element by element or, where a max over a
+   gradient within TRAIN_TOL element by element (relative, and absolute
+   times the model's largest gradient element) or, where a max over a
    group routes it otherwise (TIED_GRADIENTS, named per model), within
-   twice the largest gap measured, relative to its norm; the pre-BN biases,
-   whose true gradient is 0, within TRAIN_TOL of the model's largest
-   gradient element; the
+   twice the largest gap measured, relative to its norm; the card's
+   Linear layers computing in float32; the
    parameters after the Adam step within TRAIN_TOL but for those at Adam's
    rounding floor (pre-BN biases, gradients smaller than twice the two
    sides' difference), held to one step of the learning rate; FPS and the
@@ -82,7 +82,8 @@ Phases, any failure exits non-zero:
 
 9. bfloat16 (BatchNorm in float32): one bf16 train step of
    pointnet2_cls_ssg on the card against the CPU's bf16 and f32 steps
-   (BF16_* bounds); evaluate of the committed r5_pn2_ssg_bf16 checkpoint in
+   (BF16_* bounds), its Linear layers computing in bf16 and its gradients
+   nearer the CPU's bf16 step than its f32 one; evaluate of the committed r5_pn2_ssg_bf16 checkpoint in
    bf16 against the CPU and its eval throughput beside f32; a bf16 request
    from the r3 checkpoints against the CPU, and request latency at 4 and
    32 clusters in f32 and bf16.
@@ -94,10 +95,8 @@ Phases, any failure exits non-zero:
    bit; a frame whose RANSAC draws hold a triple that repeats a point is
    lost, as the reference loses it, and is checked to be; latency by stage
    (clip, clean, DBSCAN, infer) of the first frame served, __call__ latency,
-   and stream's sustained ms a frame beside __call__ in a loop over the
-   same 12 frames, in turns, against the 33 ms budget; the fused and the
-   staged clean timed over frame sizes (the crossover behind
-   FUSED_CLEAN_MAX_POINTS).
+   and stream's served frames/s over two windows of the same 12 frames,
+   with the frames lost beside it, against the 33 ms budget.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -133,7 +132,14 @@ FUSED_TOL = 1e-4
 # the MMA self-test: one 16x8x8 tile against the float64 product
 MMA_TOL = 1e-5
 # the train step on the card against the CPU: loss, metric, BN statistics,
-# parameters, and every gradient element where the tensor allows
+# parameters, and every gradient element where the tensor allows. A gradient
+# element is held to TRAIN_TOL relative and TRAIN_TOL times the model's
+# largest gradient element (at least 1) absolute: an element is a sum over the
+# batch of terms of that size, and where they cancel its float32 rounding is
+# set by the terms, not by the sum. Only rotation_ssg's scale is above 1 (its
+# loss is about 1,300): head.fc_2.weight, 6.1e-6 apart by relative L2, misses
+# 1e-4 absolute by 1.6e-4 at an element that cancels to well under 1; the
+# pre-BN biases, whose true gradient is 0, hold only rounding noise there.
 TRAIN_TOL = 1e-4
 # model -> (gradient tensors, by name or name prefix, held by their relative
 # L2 error instead of TRAIN_TOL element by element; that bound). A max over
@@ -148,29 +154,33 @@ TRAIN_TOL = 1e-4
 # - pointnet_cls, the encoder up to its last BatchNorm (maxima over 1024
 #   points of 1024 channels in both T-Nets and the encoder): up to 7.3e-3,
 #   where the CPU's own float32 step lies 4e-3 to 1e-2 from its float64 step;
-# - rotation_ssg on seeded weights (loss about 1,400): the SA levels below
-#   the global max, 2.8e-3 to 7.1e-3, while its head agrees to 6e-6.
+# - rotation_ssg on seeded weights (loss about 1,300): the SA levels below
+#   the global max, 4.5e-4 to 7.1e-3.
 TIED_GRADIENTS = {
     "sign_msg": (("sa1.mlp_2.dense_0.weight", "sa1.mlp_2.dense_1.weight", "sa1.mlp_2.dense_2.weight",
                   "sa1.mlp_2.bn_0.weight", "sa1.mlp_2.bn_1.bias"), 4.6e-3),
     "pointnet_cls": (("encoder.tnet_input.", "encoder.conv1.", "encoder.tnet_feature.", "encoder.conv2.",
                       "encoder.conv3."), 1.5e-2),
     "rotation_ssg": (("sa1.", "sa2.", "sa_global.mlp.dense_0.", "sa_global.mlp.bn_0.", "sa_global.mlp.dense_1.",
-                      "sa_global.mlp.bn_1.", "head.fc_2.weight"), 1.5e-2),
+                      "sa_global.mlp.bn_1."), 1.5e-2),
 }
 # One bfloat16 train step on the card against the same step on the CPU. The
 # card's and the CPU's bfloat16 products accumulate in other orders and round
 # to neighbouring bfloat16 values, so, as in tests/test_torch_bf16.py
 # (the port against JAX): loss within BF16_LOSS_TOL, BatchNorm statistics
 # (float32) within BF16_STATS_TOL, all gradients together within
-# BF16_GRAD_REL_L2 of the CPU's bfloat16 ones, and every gradient tensor's
+# BF16_GRAD_REL_L2 of the CPU's bfloat16 ones and nearer them than the
+# CPU's float32 ones, and every gradient tensor's
 # relative L2 gap from the CPU's float32 step within twice the CPU's own
 # bfloat16 gap, or within BF16_GRAD_FLOOR where that is smaller. The floor
 # is about twice the largest gap measured on the H100, 2.6e-2 at the output
 # layer's bias (head.fc_2.bias), whose gradient is a sum over the batch of
 # bfloat16 terms that cancel to a few percent of their size; every other
-# tensor stayed within 1e-2 or twice the CPU's gap.
-BF16_LOSS_TOL, BF16_STATS_TOL, BF16_GRAD_REL_L2, BF16_GRAD_FLOOR = 5e-3, 5e-3, 0.25, 5e-2
+# tensor stayed within 1e-2 or twice the CPU's gap. BF16_GRAD_REL_L2 lies
+# between the card's measured 0.114 and the CPU's own bfloat16-to-float32
+# gap, 0.225, so that a card step that ran in float32 fails it; the step
+# also checks that the card's Linear layers gave bfloat16.
+BF16_LOSS_TOL, BF16_STATS_TOL, BF16_GRAD_REL_L2, BF16_GRAD_FLOOR = 5e-3, 5e-3, 0.17, 5e-2
 # published H100 SXM peaks (NVIDIA data sheet): HBM rate, f32 outside the
 # tensor cores, dense TF32 on them
 HBM_BYTES_PER_S = 3.35e12
@@ -1007,8 +1017,9 @@ def step_pair(device, name, experiment, data_path, dtype="float32", seed=40):
     card and on the CPU from the same weights (the committed ``experiment``
     or ``seeded_model``) with the same augmentation and dropout draws (made
     once on the CPU). Returns ``(cfg, cpu_model, card_model, cpu_out,
-    card_out, launches, params_before)``; ``launches`` counts the card
-    step's FPS and ball-query launches."""
+    card_out, launches, params_before, linear_dtypes)``; ``launches`` counts
+    the card step's FPS and ball-query launches, ``linear_dtypes`` the
+    dtypes of the card's Linear outputs in its forward."""
     import torch
 
     from pointnet_like_pose_estimation_tpu_torch.data import PoseDataset, load_dataset
@@ -1043,12 +1054,17 @@ def step_pair(device, name, experiment, data_path, dtype="float32", seed=40):
     draws = draw_step(cfg, cpu_model, cpu_batch, torch.Generator().manual_seed(31))   # made once
     card_draws = {part: {k: v.to(device) for k, v in d.items()} for part, d in draws.items()}
     step = make_train_step(spec, cfg)
+    linear_dtypes = set()
+    hooks = [m.register_forward_hook(lambda m, i, o: linear_dtypes.add(o.dtype))
+             for m in card_model.modules() if isinstance(m, torch.nn.Linear)]
     f0, b0 = fps.launches, ball_query_multi.launches
     card_out = step(card_model, make_optimizer(cfg, card_model.parameters())[0], card_batch, draws=card_draws)
     torch.cuda.synchronize()
     launches = (fps.launches - f0, ball_query_multi.launches - b0)
+    for h in hooks:
+        h.remove()
     cpu_out = step(cpu_model, make_optimizer(cfg, cpu_model.parameters())[0], cpu_batch, draws=draws)
-    return cfg, cpu_model, card_model, cpu_out, card_out, launches, before
+    return cfg, cpu_model, card_model, cpu_out, card_out, launches, before, linear_dtypes
 
 
 def train_step_check(device, name, experiment, per_step, data_path):
@@ -1059,17 +1075,19 @@ def train_step_check(device, name, experiment, per_step, data_path):
 
     from pointnet_like_pose_estimation_tpu_torch.nn import pre_bn_biases
 
-    cfg, cpu_model, card_model, cpu_out, card_out, got, before = step_pair(device, name, experiment, data_path)
+    cfg, cpu_model, card_model, cpu_out, card_out, got, before, dtypes = step_pair(device, name, experiment,
+                                                                                    data_path)
     check(got == (per_step, per_step), f"train step {name}: fps/ball_query launches {got}, want {per_step} each")
+    check(dtypes == {torch.float32}, f"train step {name}: the card's Linear layers gave {dtypes}")
 
     worst, by_norm, missed = {}, {}, {}
 
-    def close(what, a, b):
+    def close(what, a, b, atol=TRAIN_TOL):
         a, b = a.detach().cpu().double(), b.detach().double()
         diff = float((a - b).abs().max()) if a.numel() else 0.0
         group = what.split(" ")[0]
         worst[group] = max(worst.get(group, 0.0), diff)
-        return bool(torch.allclose(a, b, rtol=TRAIN_TOL, atol=TRAIN_TOL)), diff
+        return bool(torch.allclose(a, b, rtol=TRAIN_TOL, atol=atol)), diff
 
     def must(what, a, b):
         ok, diff = close(what, a, b)
@@ -1082,8 +1100,8 @@ def train_step_check(device, name, experiment, per_step, data_path):
     noisy = pre_bn_biases(cpu_model)
     scale = max(1.0, max(float(p.grad.abs().max()) for p in cpu_model.parameters()))
     for k, p in cpu_model.named_parameters():
-        ok, diff = close(f"gradient {k}", card_params[k].grad, p.grad)
-        if ok or (k in noisy and diff <= TRAIN_TOL * scale):    # true gradient 0: rounding noise
+        ok, diff = close(f"gradient {k}", card_params[k].grad, p.grad, TRAIN_TOL * scale)
+        if ok:
             continue
         rel = float((card_params[k].grad.cpu() - p.grad).norm() / p.grad.norm())
         (by_norm if k.startswith(tied) and k not in noisy else missed)[k] = {"max_abs_diff": diff, "rel_l2": rel}
@@ -1116,9 +1134,11 @@ def train_step_check(device, name, experiment, per_step, data_path):
                   f"train step {name}: {k} moved more than the learning rate at Adam's rounding floor")
         must(f"parameter {k}", card_p[~floor], p.detach()[~floor])
     log(f"  train step {name} B={TRAIN_BATCH} ({experiment or 'seeded weights'}): card matches the CPU "
-        f"(loss {float(cpu_out['loss']):.6f}; max abs diff {json.dumps(worst)}; named gradients held by "
+        f"(loss {float(cpu_out['loss']):.6f}; gradient scale {scale:.4g}; max abs diff {json.dumps(worst)}; "
+        f"named gradients held by "
         f"relative L2: {json.dumps(by_norm)}); fps/ball_query launches {got}")
-    return {"loss": float(cpu_out["loss"]), "max_abs_diff": worst, "named_gradients_by_rel_l2": by_norm,
+    return {"loss": float(cpu_out["loss"]), "gradient_scale": scale, "max_abs_diff": worst,
+            "named_gradients_by_rel_l2": by_norm,
             "fps_and_ball_query_launches": got[0], "weights": experiment or "seeded"}
 
 
@@ -1129,8 +1149,10 @@ def bf16_train_step_check(device, name, experiment, per_step, data_path) -> dict
 
     from pointnet_like_pose_estimation_tpu_torch.nn import pre_bn_biases
 
-    _, cpu16, card16, cpu_out, card_out, got, *_ = step_pair(device, name, experiment, data_path, "bfloat16")
+    _, cpu16, card16, cpu_out, card_out, got, _, dtypes = step_pair(device, name, experiment, data_path,
+                                                                      "bfloat16")
     check(got == (per_step, per_step), f"bf16 train step {name}: fps/ball_query launches {got}, want {per_step}")
+    check(dtypes == {torch.bfloat16}, f"bf16 train step {name}: the card's Linear layers gave {dtypes}")
     _, cpu32, _, out32, *_ = step_pair(device, name, experiment, data_path, "float32")
     loss, loss16, loss32 = float(card_out["loss"]), float(cpu_out["loss"]), float(out32["loss"])
     check(abs(loss - loss16) <= BF16_LOSS_TOL and abs(loss - loss32) <= max(2 * abs(loss16 - loss32),
@@ -1151,8 +1173,10 @@ def bf16_train_step_check(device, name, experiment, per_step, data_path) -> dict
         check(gap <= max(2 * cpu_gap, BF16_GRAD_FLOOR),
               f"bf16 train step {name}: gradient {k} {gap} from the CPU's float32 one, its bf16 {cpu_gap}")
     cat = lambda d: torch.cat([d[k].reshape(-1) for k in card_g])  # noqa: E731
-    whole = rel(cat(card_g), cat(g16))
-    check(whole <= BF16_GRAD_REL_L2, f"bf16 train step {name}: gradients {whole} from the CPU's (relative L2)")
+    whole, whole32 = rel(cat(card_g), cat(g16)), rel(cat(card_g), cat(g32))
+    check(whole <= BF16_GRAD_REL_L2 and whole < whole32,
+          f"bf16 train step {name}: gradients {whole} from the CPU's bf16 step and {whole32} from its f32 "
+          f"step (relative L2)")
     stats = 0.0
     card_state = card16.state_dict()
     for k, v in cpu16.state_dict().items():
@@ -1160,7 +1184,7 @@ def bf16_train_step_check(device, name, experiment, per_step, data_path) -> dict
             stats = max(stats, float((card_state[k].cpu() - v).abs().max()))
     check(stats <= BF16_STATS_TOL, f"bf16 train step {name}: BN statistics {stats} from the CPU's")
     out = {"loss_card": loss, "loss_cpu_bf16": loss16, "loss_cpu_f32": loss32, "grad_rel_l2_vs_cpu_bf16": whole,
-           "cpu_bf16_vs_f32_grad_rel_l2": rel(cat(g16), cat(g32)), "worst_tensor_gap_ratio": worst_ratio,
+           "grad_rel_l2_vs_cpu_f32": whole32, "cpu_bf16_vs_f32_grad_rel_l2": rel(cat(g16), cat(g32)), "worst_tensor_gap_ratio": worst_ratio,
            "stats_max_abs_diff": stats, "fps_and_ball_query_launches": got[0]}
     log(f"  bf16 train step {name} B={TRAIN_BATCH}: card matches the CPU within the stated bounds "
         f"{json.dumps(out)}")
@@ -1418,10 +1442,6 @@ def bf16_phase(device, kernels: list[dict]) -> dict:
 FIXTURE_CFG = dict(clip_range=(-1.0, 0.0), min_points=200, radius_nb_points=60, radius=0.03, eps=0.04)
 FRAME_CFG = dict(clip_range=(-1.0, 0.0), min_points=500, eps=0.03)
 FRAME_BUDGET_MS = 1000.0 / 30.0          # the reference camera's 30 frames/s
-# the fused and the staged clean are timed on random subsets of the 28k frame
-# of these many points, then on whole frames of these many table points
-CLEAN_SUBSET_POINTS = (1000, 2000, 3000, 4500, 6500, 9000, 12000)
-CLEAN_TABLE_SIZES = (6000, 12000, 20000, 30000, 45000, 65000, 100000)
 # (label, table points) of the frames served end to end, each drawn with
 # FRAME_SEEDS seeds; stream replays them STREAM_REPEATS times
 FRAMES = (("28k", 20000), ("300k", 292000))
@@ -1448,63 +1468,12 @@ def synthetic_frame(n_table: int, seed: int = 0) -> np.ndarray:
     return np.concatenate([table, *objects, far]).astype(np.float32)
 
 
-def clean_crossover(cfg) -> dict:
-    """The fused and the staged clean timed on the card over cloud sizes:
-    random subsets of the 28k frame (seed 1) of about CLEAN_SUBSET_POINTS
-    points, each size moved up to the first whose RANSAC draws repeat no
-    index (below 10k points most sizes draw a degenerate triple, ROADMAP.md
-    Queue 3), then whole frames of CLEAN_TABLE_SIZES table points; both
-    paths must keep the same points. A cloud whose plane is degenerate
-    leaves the staged path nothing to count and is no evidence either way."""
-    import torch
-
-    from pointnet_like_pose_estimation_tpu_torch.pipeline import preprocess as pp
-
-    def repeats(n):                 # a triple of the draws over n points repeats an index
-        t = pp.draw_ransac(n, cfg.plane_iterations)
-        return bool(((t[:, 0] == t[:, 1]) | (t[:, 1] == t[:, 2]) | (t[:, 0] == t[:, 2])).any())
-
-    base = pp.clip_distance(synthetic_frame(20000, seed=1), cfg.clip_range, cfg.clip_axis)
-    rng = np.random.default_rng(5)
-    clouds = []
-    for n in CLEAN_SUBSET_POINTS:   # the first size from n whose draws find a plane, so that both paths count
-        while repeats(n):
-            n += 1
-        clouds.append(base[np.sort(rng.choice(len(base), n, replace=False))])
-    clouds += [pp.clip_distance(synthetic_frame(n, seed=1), cfg.clip_range, cfg.clip_axis)
-               for n in CLEAN_TABLE_SIZES]
-    rows = []
-    for pts in clouds:
-        args = (pts, cfg.plane_threshold, cfg.plane_iterations, cfg.radius_nb_points, cfg.radius)
-        fused = lambda: pts[pp.clean_masks_async(*args).cpu().numpy()]  # noqa: E731
-        staged = lambda: pp.clean_staged(*args)  # noqa: E731
-        check(np.array_equal(fused(), staged()), f"clean at {len(pts)} points: fused and staged differ")
-        normal, _ = pp.best_plane(torch.from_numpy(pts[:, :3].copy()),
-                                  pp.draw_ransac(len(pts), cfg.plane_iterations), cfg.plane_threshold)
-        reps = 5 if len(pts) <= 40000 else 3
-        rows.append({"points": len(pts), "fused_ms": timed(fused, reps)["median_ms"],
-                     "staged_ms": timed(staged, reps)["median_ms"], "degenerate_plane": not bool(normal.any())})
-        log(f"  clean at {len(pts)} points: fused {rows[-1]['fused_ms']:.3f} ms, staged "
-            f"{rows[-1]['staged_ms']:.3f} ms" + (" (degenerate plane: nothing left to count)"
-                                                  if rows[-1]["degenerate_plane"] else ""))
-    evidence = [r for r in rows if not r["degenerate_plane"]]
-    fused_wins = [r["points"] for r in evidence if r["fused_ms"] <= r["staged_ms"]]
-    staged_wins = [r["points"] for r in evidence if r["fused_ms"] > r["staged_ms"]]
-    out = {"rows": rows, "largest_where_fused_wins": max(fused_wins, default=0),
-           "smallest_where_staged_wins": min(staged_wins, default=None),
-           "FUSED_CLEAN_MAX_POINTS": pp.FUSED_CLEAN_MAX_POINTS}
-    log(f"  clean crossover: fused wins up to {out['largest_where_fused_wins']} points, staged from "
-        f"{out['smallest_where_staged_wins']}; preprocess.FUSED_CLEAN_MAX_POINTS = {pp.FUSED_CLEAN_MAX_POINTS}")
-    return out
-
-
 def frame_phase(device, kernels: list[dict]) -> dict:
     """The raw-frame path: ``cli infer`` on the replay scene on the card
     against ``--device cpu``; ``__call__`` and ``stream`` on the 28k and 300k
     synthetic frames (r3 checkpoints) against the CPU, the cleaned points
     equal bit for bit, with the launches, the latency by stage and the
-    sustained frames/s of ``stream``; then the fused and the staged clean
-    timed over frame sizes, which sets preprocess.FUSED_CLEAN_MAX_POINTS."""
+    served frames/s of ``stream``."""
     import torch
 
     from pointnet_like_pose_estimation_tpu_torch import cli
@@ -1591,7 +1560,7 @@ def frame_phase(device, kernels: list[dict]) -> dict:
             lab = pp.dbscan(c, cfg.eps, cfg.min_points)
             t.append(time.perf_counter())
             with torch.inference_mode():
-                pipe._finish_scene(pipe._infer_scene(c, lab))
+                pipe._infer_scene(c, lab)
             t.append(time.perf_counter())
             return np.diff(t) * 1e3
 
@@ -1602,24 +1571,23 @@ def frame_phase(device, kernels: list[dict]) -> dict:
             check((r is None) == (want is None) and (r is None or all(np.array_equal(r[k], want[k]) for k in want)),
                   f"frame {label}: stream differs from __call__")
         stream = frames * STREAM_REPEATS
-        per_frame = {}
-        for how in ("stream", "calls", "stream", "calls"):       # in turns, over the same frames
+        window_s, n_served = [], 0
+        for _ in range(2):                                  # two windows over the same frames
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            served = pipe.stream(iter(stream)) if how == "stream" else (pipe(f) for f in stream)
-            n_served = sum(r is not None for r in served)
+            n_served += sum(r is not None for r in pipe.stream(iter(stream)))
             torch.cuda.synchronize()
-            per_frame.setdefault(how, []).append(1e3 * (time.perf_counter() - t0) / len(stream))
+            window_s.append(time.perf_counter() - t0)
+        n_frames = 2 * len(stream)
         row = {"frames": rows, "raw_points": len(frame),
-               "clean_path": "staged" if rows[0]["clipped"] > pp.FUSED_CLEAN_MAX_POINTS else "fused",
                "stage_ms": dict(zip(("clip", "clean", "dbscan", "infer"), split.tolist())), "call": total,
-               "stream_ms_per_frame": per_frame["stream"], "calls_ms_per_frame": per_frame["calls"],
-               "stream_frames_per_s": 1e3 / min(per_frame["stream"]),
-               "stream_frames": len(stream), "stream_served": n_served, "budget_ms": FRAME_BUDGET_MS}
+               "stream_ms_per_frame": [1e3 * w / len(stream) for w in window_s],
+               "stream_served_frames_per_s": n_served / sum(window_s),
+               "stream_frames": n_frames, "stream_served": n_served, "stream_lost": n_frames - n_served,
+               "budget_ms": FRAME_BUDGET_MS}
         report["frames"][label] = row
         log(f"  frame {label}: latency and stream {json.dumps({k: v for k, v in row.items() if k != 'frames'})}")
 
-    report["clean_crossover"] = clean_crossover(cfg)
     launches = {"fps": fps.launches, "ball_query": ball_query_multi.launches}
     check(launches["fps"] > 0 and launches["ball_query"] > 0, "the frame path launched no kernel")
     for k in kernels:

@@ -83,28 +83,6 @@ def _load_weights(path: str) -> dict:
     return from_flax_variables(load_flax_checkpoint(path))
 
 
-def _to_host(tensors: dict[str, torch.Tensor]):
-    """Start copying ``tensors`` to the host without waiting: pinned buffers
-    and an event on the card, the tensors themselves on the CPU. ``_wait``
-    returns the numpy arrays."""
-    first = next(iter(tensors.values()))
-    if first.device.type != "cuda":
-        return tensors, None
-    host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True) for k, v in tensors.items()}
-    for k, v in tensors.items():
-        host[k].copy_(v, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
-    return host, done
-
-
-def _wait(handle) -> dict[str, np.ndarray]:
-    host, done = handle
-    if done is not None:
-        done.synchronize()
-    return {k: v.numpy() for k, v in host.items()}
-
-
 class GraspPipeline:
     """The five models of a grasp request, on one device, computing in
     ``cfg.dtype`` (set on their Linear layers)."""
@@ -168,24 +146,16 @@ class GraspPipeline:
             return None
         return pp.cluster_point(pts, cfg.eps, cfg.min_points, device=dev)
 
-    def _infer_scene(self, pts: np.ndarray, labels: np.ndarray):
-        """A cleaned cloud and its DBSCAN labels -> a handle on the scene's
-        grasps (``_finish_scene`` reads it): the clusters truncated to the
-        smallest by FPS, resampled, and served, all launched without waiting
-        for the device. None when DBSCAN found no cluster."""
+    def _infer_scene(self, pts: np.ndarray, labels: np.ndarray) -> dict[str, np.ndarray] | None:
+        """A cleaned cloud and its DBSCAN labels -> the scene's grasps, with
+        ``clusters`` (the truncated clusters, all channels): the clusters
+        truncated to the smallest by FPS, resampled and served on the device.
+        None when DBSCAN found no cluster."""
         if labels.max() < 0:
             return None
         trunc, idx = pp.truncate_clusters(pp._xyz(pts, self.device), pp.cluster_groups(labels))
-        out = self._infer(self._resample_tensor(trunc))
-        return _to_host({**out, "cluster_idx": idx}), pts
-
-    @staticmethod
-    def _finish_scene(handle) -> dict[str, np.ndarray] | None:
-        if handle is None:
-            return None
-        copies, pts = handle
-        res = _wait(copies)
-        res["clusters"] = pts[res.pop("cluster_idx")]
+        res = {k: v.cpu().numpy() for k, v in self._infer(self._resample_tensor(trunc)).items()}
+        res["clusters"] = pts[idx.cpu().numpy()]
         return res
 
     def __call__(self, points: np.ndarray) -> dict[str, np.ndarray] | None:
@@ -205,55 +175,16 @@ class GraspPipeline:
                                  cfg.radius, device=self.device)
             if len(pts) < cfg.min_points:
                 return None
-            return self._finish_scene(self._infer_scene(pts, pp.dbscan(pts, cfg.eps, cfg.min_points)))
+            return self._infer_scene(pts, pp.dbscan(pts, cfg.eps, cfg.min_points))
 
     def stream(self, scenes):
-        """Serve raw clouds in order, one result (or None) each, equal to
-        ``__call__``'s, with one frame of look-behind: frame t + 1's clean is
-        launched, then frame t's DBSCAN runs on the host while the card
-        works, then frame t - 1's results are read. Device results come back
-        through pinned buffers and an event, so that the host waits for that
-        frame's work only, not for all that is queued after it. The staged
-        clean (above ``preprocess.FUSED_CLEAN_MAX_POINTS`` points) waits for
-        the device between its stages. With another outlier method every
-        frame is a ``__call__``."""
-        cfg = self.cfg
-        if cfg.outlier_method != "radius":
-            for points in scenes:
-                yield self(points)
-            return
-
-        def start_clean(raw):
-            pts = pp.clip_distance(raw, cfg.clip_range, cfg.clip_axis)
-            if len(pts) < cfg.min_points:
-                return None
-            args = (pts, cfg.plane_threshold, cfg.plane_iterations, cfg.radius_nb_points, cfg.radius)
-            if len(pts) > pp.FUSED_CLEAN_MAX_POINTS:
-                return pp.clean_staged(*args, device=self.device), None
-            return pts, _to_host({"mask": pp.clean_masks_async(*args, device=self.device)})
-
-        def resolve(cur):
-            if cur is None:
-                return None
-            pts, mask = cur
-            cleaned = pts if mask is None else pts[_wait(mask)["mask"]]
-            if len(cleaned) < cfg.min_points:
-                return None
-            return self._infer_scene(cleaned, pp.dbscan(cleaned, cfg.eps, cfg.min_points))
-
-        with torch.inference_mode():
-            it = iter(scenes)
-            nxt = start_clean(raw) if (raw := next(it, None)) is not None else None
-            pending = []                                    # one frame of look-behind
-            while raw is not None:
-                cur = nxt
-                raw = next(it, None)
-                nxt = start_clean(raw) if raw is not None else None   # clean(t + 1) first
-                pending.append(resolve(cur))                # DBSCAN(t) while the card works
-                if len(pending) > 1:
-                    yield self._finish_scene(pending.pop(0))
-            for handle in pending:
-                yield self._finish_scene(handle)
+        """Serve raw clouds in order, one ``__call__`` result (or None) each.
+        The JAX package keeps one frame of look-behind here, so that one
+        frame's DBSCAN runs on the host while the device works on the
+        next; on the H100 the port's form of it was slower than this loop
+        (PERF.md, Findings, PR 6), so frames are served one after another."""
+        for points in scenes:
+            yield self(points)
 
     # --- clusters ---------------------------------------------------------------------------
 

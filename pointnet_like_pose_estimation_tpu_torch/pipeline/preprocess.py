@@ -40,29 +40,11 @@ from pointnet_like_pose_estimation_tpu_torch.utils.device import resolve_device
 
 # pairs (or point-hypothesis products) held by one block of distance tests
 BLOCK_ELEMS = 1 << 24
-# Above this many clipped points clean_scene takes the staged path (plane,
-# then the radius test among the points the plane left); at or below it the
-# fused one (the radius test over every row, masked by the plane, with no
-# wait for the device). Both keep the same points. On the H100 the fused
-# path won up to 3,008 points and the staged one from 4,500 (1.30 against
-# 1.42 ms at 1,035 points, 2.02 against 1.46 at 4,500, 24.3 against 3.4 at
-# 23,518; chip_smoke.py clean_crossover): the fused one counts every pair
-# of the frame, the staged one only the pairs of the points off the table.
-FUSED_CLEAN_MAX_POINTS = 4096
-
-
-def _to_device(host: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """``host`` on ``device``; on the card through pinned memory, without
-    waiting for the work already queued there (a copy from pageable memory
-    would wait for it)."""
-    if device.type == "cuda":
-        return host.pin_memory().to(device, non_blocking=True)
-    return host
 
 
 def _xyz(points: np.ndarray, device: torch.device) -> torch.Tensor:
     """The first three channels as a float32 ``[N, 3]`` tensor on ``device``."""
-    return _to_device(torch.from_numpy(np.ascontiguousarray(points[:, :3], np.float32)), device)
+    return torch.from_numpy(np.ascontiguousarray(points[:, :3], np.float32)).to(device)
 
 
 def _blocks(n_rows: int, n_cols: int):
@@ -112,7 +94,7 @@ def plane_scores(xyz: torch.Tensor, triples: torch.Tensor, threshold: float):
     [H, 3], offsets [H], inlier counts [H])``. The normal is the cross
     product over its norm plus 1e-12 (the root taken in float64 and rounded
     once, so it is the same on both devices) and the offset ``-n.p0``."""
-    tri = xyz[_to_device(triples, xyz.device)]                 # [H, 3, 3]
+    tri = xyz[triples.to(xyz.device)]                          # [H, 3, 3]
     a, b = tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]
     n = torch.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
                      a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
@@ -161,18 +143,15 @@ def remove_plane(points: np.ndarray, **kw) -> np.ndarray:
 # --- outlier tests --------------------------------------------------------------------------
 
 
-def range_counts(xyz: torch.Tensor, radius: float, mask: torch.Tensor | None = None) -> torch.Tensor:
+def range_counts(xyz: torch.Tensor, radius: float) -> torch.Tensor:
     """For each of ``[N, 3]`` points, the points within ``radius`` (``d^2 <=
-    radius^2`` in float32) among those ``mask`` keeps, minus one for the
-    point itself. int64 ``[N]``."""
+    radius^2`` in float32), minus one for the point itself. int64 ``[N]``."""
     r2 = np.float32(radius) * np.float32(radius)
     sq = _sq_norms(xyz)
     blocks, step = _blocks(len(xyz), len(xyz))
     out = []
     for lo in blocks:
         within = _sq_dist_block(xyz[lo:lo + step], sq[lo:lo + step], xyz, sq) <= r2
-        if mask is not None:
-            within = within & mask[None, :]
         out.append(within.sum(1) - 1)
     return torch.cat(out) if out else torch.zeros(0, dtype=torch.long, device=xyz.device)
 
@@ -210,49 +189,21 @@ def remove_statistical_outlier(points: np.ndarray, nb_neighbors: int = 120, std_
     return points[md <= md.mean() + std_ratio * md.std()]
 
 
-def clean_masks(xyz: torch.Tensor, triples: torch.Tensor, plane_threshold: float, radius: float,
-                nb_points: int) -> torch.Tensor:
-    """The fused clean: off the best plane of ``triples`` and with at least
-    ``nb_points`` others within ``radius`` among the points off the plane,
-    ``[N]`` bool on the device of ``xyz``. Nothing here waits for the device."""
-    keep = _off_plane(xyz, triples, plane_threshold)
-    return keep & (range_counts(xyz, radius, keep) >= nb_points)
-
-
-def clean_masks_async(points: np.ndarray, plane_threshold: float = 0.006, num_iterations: int = 1000,
-                      radius_nb_points: int = 200, radius: float = 0.05, seed: int = 0,
-                      device="cuda") -> torch.Tensor:
-    """``clean_masks`` of a host cloud with the triples of ``draw_ransac``;
-    returns the device mask without waiting for it, so that a streaming
-    caller overlaps host work with the card."""
-    device = resolve_device(device, "clean_masks_async")
-    return clean_masks(_xyz(points, device), draw_ransac(len(points), num_iterations, seed),
-                       plane_threshold, radius, radius_nb_points)
-
-
-def clean_staged(points: np.ndarray, plane_threshold: float = 0.006, num_iterations: int = 1000,
-                 radius_nb_points: int = 200, radius: float = 0.05, seed: int = 0,
-                 device="cuda") -> np.ndarray:
-    """The staged clean: the points off the plane are gathered on the device
-    (one wait for it) and the radius test runs among them only."""
-    device = resolve_device(device, "clean_staged")
+def clean_scene(points: np.ndarray, plane_threshold: float = 0.006, num_iterations: int = 1000,
+                radius_nb_points: int = 200, radius: float = 0.05, seed: int = 0,
+                device="cuda") -> np.ndarray:
+    """``remove_plane`` then ``remove_radius_outlier``: the points off the
+    plane are gathered on the device and the radius test runs among them
+    only. The JAX package fuses both tests into one program up to 65,536
+    points; on the H100 that fused form, which counts every pair of the
+    frame, lost to this one from 4,500 points and gained at most 0.4 ms
+    below (PERF.md, Findings, PR 6), so the port keeps this one only."""
+    device = resolve_device(device, "clean_scene")
     xyz = _xyz(points, device)
     keep = _off_plane(xyz, draw_ransac(len(points), num_iterations, seed), plane_threshold)
     rows = torch.nonzero(keep)[:, 0]
     counts = range_counts(xyz[rows], radius)
     return points[rows[counts >= radius_nb_points].cpu().numpy()]
-
-
-def clean_scene(points: np.ndarray, plane_threshold: float = 0.006, num_iterations: int = 1000,
-                radius_nb_points: int = 200, radius: float = 0.05, seed: int = 0,
-                device="cuda") -> np.ndarray:
-    """``remove_plane`` then ``remove_radius_outlier``: fused
-    (``clean_masks_async``) up to ``FUSED_CLEAN_MAX_POINTS`` points, staged
-    (``clean_staged``) above. Both keep the same points."""
-    args = (points, plane_threshold, num_iterations, radius_nb_points, radius, seed)
-    if len(points) > FUSED_CLEAN_MAX_POINTS:
-        return clean_staged(*args, device=device)
-    return points[clean_masks_async(*args, device=device).cpu().numpy()]
 
 
 # --- DBSCAN and clusters --------------------------------------------------------------------
@@ -333,7 +284,7 @@ def truncate_clusters(xyz: torch.Tensor, groups: list[np.ndarray]):
     which FPS never picks while real points remain."""
     min_size, max_size = min(map(len, groups)), max(map(len, groups))
     padded = np.stack([np.concatenate([g, np.full(max_size - len(g), g[0])]) for g in groups])
-    idx = _to_device(torch.from_numpy(padded), xyz.device)
+    idx = torch.from_numpy(padded).to(xyz.device)
     clusters = xyz[idx]                                          # [K, max_size, 3]
     pick = farthest_point_sample(clusters, min_size).long()
     return index_points(clusters, pick), torch.gather(idx, 1, pick)

@@ -293,13 +293,15 @@ def _seeded(name, seed):
 # as chip_smoke.py's TIED_GRADIENTS: gradient tensors held by their relative
 # L2 error (twice the largest gap measured on the H100), because a max over a
 # group routes them to another member where its two largest values lie
-# within the two devices' rounding of each other; the pre-BN biases, whose
-# true gradient is 0, within 1e-4 of the model's largest gradient element
+# within the two devices' rounding of each other. Every other gradient
+# element within 1e-4 relative and 1e-4 of the model's largest gradient
+# element absolute (at least 1e-4): an element sums terms of that size over
+# the batch, so its rounding is set by them where they cancel
 TIED_GRADIENTS = {
     "pointnet_cls": (("encoder.tnet_input.", "encoder.conv1.", "encoder.tnet_feature.", "encoder.conv2.",
                       "encoder.conv3."), 1.5e-2),
     "rotation_ssg": (("sa1.", "sa2.", "sa_global.mlp.dense_0.", "sa_global.mlp.bn_0.", "sa_global.mlp.dense_1.",
-                      "sa_global.mlp.bn_1.", "head.fc_2.weight"), 1.5e-2),
+                      "sa_global.mlp.bn_1."), 1.5e-2),
 }
 
 
@@ -310,7 +312,8 @@ def test_train_step_on_card_matches_cpu(card, name, launches):
     pointnet2_cls_ssg from the committed r3 checkpoint, pointnet_cls (its
     T-Nets and the orthogonality penalty) and rotation_ssg (the SSG head on
     10 channels) from seeded weights. The card's loss, gradients (but those
-    of TIED_GRADIENTS) and BatchNorm statistics within 1e-4 of the CPU's, and
+    of TIED_GRADIENTS, absolute 1e-4 scaled by the model's largest gradient)
+    and BatchNorm statistics within 1e-4 of the CPU's, and
     FPS and the ball query launched ``launches`` times each."""
     import copy
 
@@ -355,7 +358,7 @@ def test_train_step_on_card_matches_cpu(card, name, launches):
     missed = {}
     for k, p in cpu_model.named_parameters():
         g = card_params[k].grad.cpu()
-        if torch.allclose(g, p.grad, **tol) or (k in noisy and float((g - p.grad).abs().max()) <= 1e-4 * scale):
+        if torch.allclose(g, p.grad, rtol=1e-4, atol=1e-4 * scale):
             continue
         rel = float((g - p.grad).norm() / p.grad.norm())
         if not (k.startswith(tied) and k not in noisy and rel <= tied_bound):

@@ -194,7 +194,7 @@ def test_draws_are_seeded_and_the_same_for_both_devices():
 def test_degenerate_triple_wins_in_both_packages():
     """A triple that repeats an index has a zero normal and offset, every
     point is its inlier, and it wins the argmax over any real plane that
-    leaves a point out: the fused clean then keeps nothing. JAX's draws
+    leaves a point out: the clean then keeps nothing. JAX's draws
     with ``PRNGKey(1)`` over a 2,048-point scene (a table and an object
     above it) hold such a triple; both packages pick it."""
     rng = np.random.default_rng(0)
@@ -210,11 +210,8 @@ def test_degenerate_triple_wins_in_both_packages():
     assert bool(degenerate.any())
     n, d = pp.best_plane(torch.from_numpy(table), triples, 0.006)
     assert not n.any() and float(d) == 0.0
-    mask = pp.clean_masks(torch.from_numpy(table), triples, 0.006, 0.05, 200)
-    assert not mask.any()
-    with pytest.MonkeyPatch.context() as mp:          # the staged clean keeps nothing either
+    with pytest.MonkeyPatch.context() as mp:
         mp.setattr(pp, "draw_ransac", lambda n, h=1000, seed=0: jax_draws(n, h, seed=1))
-        assert len(pp.clean_staged(table, device="cpu")) == 0
         assert len(pp.clean_scene(table, device="cpu")) == 0
     want = np.asarray(jpp._clean_masks(*map(jnp.asarray, jpp._pad_bucket(table)), jax.random.PRNGKey(1),
                                        0.006, 0.05, 200))
@@ -262,16 +259,12 @@ def test_outlier_removals_match_jax():
                                   jpp.remove_statistical_outlier(cloud, 20, 0.1))
 
 
-def test_fused_and_staged_clean_keep_the_same_points(monkeypatch):
+def test_clean_scene_is_remove_plane_then_remove_radius_outlier():
     cloud = pp.clip_distance(synthetic_scene(1), (-1.0, 0.0), 2)
-    fused = cloud[pp.clean_masks_async(cloud, radius_nb_points=60, radius=0.03, device="cpu").numpy()]
-    staged = pp.clean_staged(cloud, radius_nb_points=60, radius=0.03, device="cpu")
-    np.testing.assert_array_equal(fused, staged)
-    assert 3000 < len(fused) < len(cloud) - 7000
-    for limit in (0, len(cloud)):                       # clean_scene takes either by size
-        monkeypatch.setattr(pp, "FUSED_CLEAN_MAX_POINTS", limit)
-        np.testing.assert_array_equal(pp.clean_scene(cloud, radius_nb_points=60, radius=0.03, device="cpu"),
-                                      fused)
+    cleaned = pp.clean_scene(cloud, radius_nb_points=60, radius=0.03, device="cpu")
+    off_plane = pp.remove_plane(cloud, device="cpu")
+    np.testing.assert_array_equal(cleaned, pp.remove_radius_outlier(off_plane, 60, 0.03, device="cpu"))
+    assert 3000 < len(cleaned) < len(off_plane) < len(cloud) - 7000
 
 
 # --- DBSCAN and clusters --------------------------------------------------------------------
