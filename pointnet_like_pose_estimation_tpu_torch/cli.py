@@ -1,11 +1,12 @@
-"""Command-line entry points of the port: ``generate``, ``train``, ``eval``
-and ``infer`` (the counterparts of the same subcommands of the JAX package's
-``cli.py``; ``sweep`` is not ported yet).
+"""Command-line entry points of the port: ``generate``, ``train``, ``eval``,
+``infer`` and ``sweep`` (the counterparts of the same subcommands of the JAX
+package's ``cli.py``).
 
   python -m pointnet_like_pose_estimation_tpu_torch.cli generate --num-per-class 800
   python -m pointnet_like_pose_estimation_tpu_torch.cli train --model pointnet2_cls_ssg --epochs 40
   python -m pointnet_like_pose_estimation_tpu_torch.cli eval --model rotation --data data_cache/dataset.npz
   python -m pointnet_like_pose_estimation_tpu_torch.cli infer --input scene.ply --checkpoints '{...}'
+  python -m pointnet_like_pose_estimation_tpu_torch.cli sweep --epochs 10
 
 All run on the card; ``--device cpu`` asks for the CPU. Without a card and
 without that option they raise. ``train`` takes the JAX command's flags but
@@ -18,7 +19,10 @@ bfloat16, BatchNorm in float32 either way). ``infer`` serves raw clouds
 ``GraspPipeline.stream``) with ``--config``, JSON overrides of
 ``PipelineConfig`` (``dtype`` among them), and ``--checkpoints``, JSON of
 the five models' paths (flax ``.msgpack`` or the port's ``.pt``; seeded
-random weights without it), and prints one JSON line a cloud.
+random weights without it), and prints one JSON line a cloud. ``sweep``
+trains the reference's loss and reduction grid (14 jobs) one after another
+and writes ``sweep_results.json`` under ``--log-dir`` after each; a second
+call with the same settings resumes where the first stopped.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 
 
 def _add_common_args(p):
@@ -135,6 +140,54 @@ def cmd_infer(args):
         }))
 
 
+def cmd_sweep(args):
+    """Train the reference's grid for ``--epochs`` and record each job's
+    last history row in ``<log-dir>/sweep_results.json``: rotation and both
+    translation heads at L2/L1 x mean/sum, sign once (its loss is BCE),
+    then the PointNet classifier, 14 jobs in that order. The file is
+    keyed by job name and stamped with ``_settings`` (epochs and data): a
+    second call skips the jobs already there, and refuses a file written
+    with other settings or with results but no stamp, since its rows would
+    pass for this budget's."""
+    from pointnet_like_pose_estimation_tpu_torch.data import load_dataset
+    from pointnet_like_pose_estimation_tpu_torch.train import TrainConfig, train
+
+    train_ds = load_dataset(args.data, "train")
+    test_ds = load_dataset(args.data, "test")
+    out_path = os.path.join(args.log_dir, "sweep_results.json")
+    settings = {"epochs": args.epochs, "data": args.data}
+    results = {}
+    if os.path.exists(out_path):
+        with open(out_path) as f:
+            results = json.load(f)
+        prev = results.get("_settings")
+        if prev is None and any(not k.startswith("_") for k in results):
+            raise SystemExit(
+                f"sweep resume: {out_path} has results but no _settings stamp (unknown budget); "
+                f"delete it or pass a different --log-dir to start a fresh sweep")
+        if prev is not None and prev != settings:
+            raise SystemExit(
+                f"sweep resume: {out_path} was produced with settings {prev}, current invocation "
+                f"uses {settings}; delete the file or pass a different --log-dir to start a fresh sweep")
+    results["_settings"] = settings
+    jobs = [(model, kind, reduction)
+            for model in ("rotation", "sign", "translation", "translation_no_mlp")
+            for kind in ("L2_loss", "L1_loss") for reduction in ("mean", "sum")
+            if model != "sign" or (kind, reduction) == ("L2_loss", "mean")]
+    jobs.append(("pointnet_cls", "L2_loss", "mean"))
+    for model, kind, reduction in jobs:
+        name = f"{model}_{kind}_{reduction}"
+        if name in results:
+            continue
+        cfg = TrainConfig.for_model(model, epochs=args.epochs, loss_kind=kind, loss_reduction=reduction,
+                                    log_dir=args.log_dir, experiment=name, dtype=args.dtype)
+        _, history = train(cfg, train_ds, test_ds, device=args.device)
+        results[name] = history[-1]
+        print(name, json.dumps(history[-1]))
+        with open(out_path, "w") as f:
+            json.dump(results, f, indent=2)
+
+
 def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     p = argparse.ArgumentParser(prog="plpe-torch")
@@ -161,6 +214,14 @@ def main(argv=None):
     i.add_argument("--checkpoints", default=None, help="JSON {model key: checkpoint path}")
     i.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     i.set_defaults(fn=cmd_infer)
+
+    s = sub.add_parser("sweep", help="the reference's loss/reduction ablation sweep")
+    s.add_argument("--data", default="data_cache/dataset.npz")
+    s.add_argument("--epochs", type=int, default=10)
+    s.add_argument("--log-dir", default="log")
+    s.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
+    s.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    s.set_defaults(fn=cmd_sweep)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -5,6 +5,7 @@ from pointnet_like_pose_estimation_tpu_torch.data.dataset import (
     build_dataset,
     iter_batches,
     load_dataset,
+    load_reference_layout,
 )
 
-__all__ = ["PoseDataset", "build_dataset", "iter_batches", "load_dataset"]
+__all__ = ["PoseDataset", "build_dataset", "iter_batches", "load_dataset", "load_reference_layout"]

@@ -7,14 +7,15 @@
 - split: the reference's 6001/8000 train/test ratio per class, for any
   per-class count.
 - loading: ``load_dataset`` applies the loader's sign convention,
-  ``sign = sign(rot_z)`` and ``rot_z = |rot_z|``.
-
-``load_reference_layout`` (the txt-per-cloud tree) is not ported yet.
+  ``sign = sign(rot_z)`` and ``rot_z = |rot_z|``; ``load_reference_layout``
+  reads the reference's txt-per-cloud tree with the same split and
+  convention.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
 import os
 from typing import Iterator
 
@@ -23,8 +24,8 @@ import torch
 
 from pointnet_like_pose_estimation_tpu_torch.data import generators
 from pointnet_like_pose_estimation_tpu_torch.data.generators import CATEGORIES
-from pointnet_like_pose_estimation_tpu_torch.kernels.fps import MAX_POINTS
 from pointnet_like_pose_estimation_tpu_torch.ops import farthest_point_sample, index_points
+from pointnet_like_pose_estimation_tpu_torch.pipeline import native_dbscan
 from pointnet_like_pose_estimation_tpu_torch.utils.device import resolve_device
 
 
@@ -64,17 +65,13 @@ def _batched_fps(dense: list[np.ndarray], n_points: int, device="cuda") -> np.nd
 
     Clouds are padded to a multiple of 1024 points by repeating their first
     point: a duplicate at distance zero is never selected before every real
-    point, so the padding is invisible to FPS. A cloud above the FPS
-    kernel's ``MAX_POINTS`` raises.
+    point, so the padding is invisible to FPS. A cloud of any size is taken.
     """
     device = resolve_device(device, "_batched_fps")
     out = np.empty((len(dense), n_points, 3), dtype=np.float32)
     for lo in range(0, len(dense), _FPS_CHUNK):
         chunk = dense[lo:lo + _FPS_CHUNK]
         pad_len = -(-max(len(c) for c in chunk) // 1024) * 1024
-        if pad_len > MAX_POINTS:
-            raise ValueError(f"_batched_fps: a dense cloud of {max(len(c) for c in chunk)} points "
-                             f"pads to {pad_len}, above the FPS kernel's {MAX_POINTS}")
         batch = np.stack(
             [np.concatenate([c, np.tile(c[:1], (pad_len - len(c), 1))]) for c in chunk]
         ).astype(np.float32)
@@ -160,6 +157,65 @@ def load_dataset(src: str | dict, split: str = "train") -> PoseDataset:
         sign=sign,
         width=width,
     )
+
+
+def _read_csv(paths: list[str], max_rows: int, cols: int) -> tuple[np.ndarray, np.ndarray]:
+    """``native_dbscan.load_csv_files``, raising for a file it cannot read."""
+    values, rows = native_dbscan.load_csv_files(paths, max_rows, cols)
+    if (rows < 0).any():
+        bad = [p for p, r in zip(paths, rows) if r < 0]
+        raise FileNotFoundError(f"unreadable sample files: {bad[:3]}...")
+    return values, rows
+
+
+def load_reference_layout(
+    root: str,
+    split: str = "train",
+    *,
+    num_points: int = 1024,
+    categories: list[str] | None = None,
+    rng: np.random.Generator | None = None,
+    max_file_points: int = 2048,
+) -> PoseDataset:
+    """A dataset stored in the reference's txt-per-cloud tree
+    (``<root>/<cat>/<cat>_NNNN.txt`` with ``_rot.txt`` and ``_tran.txt``)
+    as a ``PoseDataset``: per class, the first 6001/8000 of the sorted
+    samples are the train split. The files are parsed on the native thread
+    pool (``native_dbscan.load_csv_files``), at most ``max_file_points``
+    rows a cloud. Each cloud is sampled to ``num_points`` from ``rng``,
+    without replacement where it holds enough points (with replacement
+    otherwise), and the loader's sign convention is applied."""
+    categories = categories or CATEGORIES
+    rng = rng or np.random.default_rng(0)
+    pt_paths, rot_paths, tran_paths, labels = [], [], [], []
+    for ci, cat in enumerate(categories):
+        stems = sorted(
+            p[: -len(".txt")]
+            for p in glob.glob(os.path.join(root, cat, f"{cat}_*.txt"))
+            if not p.endswith(("_rot.txt", "_tran.txt"))
+        )
+        n_train = _split_count(len(stems))
+        keep = stems[:n_train] if split == "train" else stems[n_train:]
+        pt_paths += [s + ".txt" for s in keep]
+        rot_paths += [s + "_rot.txt" for s in keep]
+        tran_paths += [s + "_tran.txt" for s in keep]
+        labels += [ci] * len(keep)
+    if not pt_paths:
+        raise FileNotFoundError(f"no reference-layout samples under {root}")
+    raw, counts = _read_csv(pt_paths, max_file_points, 3)
+    rot = _read_csv(rot_paths, 1, 3)[0][:, 0]
+    tran = _read_csv(tran_paths, 1, 3)[0][:, 0]
+    points = np.empty((len(raw), num_points, 3), np.float32)
+    for i in range(len(raw)):
+        n = int(counts[i])
+        sel = (rng.choice(n, num_points, replace=False) if n >= num_points
+               else rng.choice(max(n, 1), num_points, replace=True))
+        points[i] = raw[i, sel]
+    sign = np.sign(rot[:, 2]).astype(np.float32)
+    rot = rot.copy()
+    rot[:, 2] = np.abs(rot[:, 2])
+    return PoseDataset(points=points, labels=np.asarray(labels, np.int32), rot=rot, tran=tran,
+                       sign=sign)
 
 
 def iter_batches(

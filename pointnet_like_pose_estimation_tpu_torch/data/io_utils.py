@@ -1,12 +1,36 @@
-"""Cloud files: PLY read and write, and a replay camera that serves saved
-frames (counterparts of ``save_ply``, ``load_ply`` and ``ReplayCamera`` in
-``data/io_utils.py`` of the JAX package, which this module copies; the
-reference-layout readers are not ported yet).
+"""Cloud files: the reference's txt-per-cloud layout, PLY read and write,
+and a replay camera that serves saved frames (counterparts of
+``data/io_utils.py`` of the JAX package, which this module copies).
+
+The reference stores a sample as CSV text files ``<cat>/<cat>_NNNN.txt``
+(points), ``_rot.txt`` and ``_tran.txt``, and captures as PLY.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+
+def save_reference_layout(root: str, category: str, index: int, points, rot, tran) -> None:
+    """Write one sample in the reference's txt layout under ``root``."""
+    d = os.path.join(root, category)
+    os.makedirs(d, exist_ok=True)
+    stem = os.path.join(d, f"{category}_{index:04d}")
+    np.savetxt(stem + ".txt", np.asarray(points), fmt="%6f", delimiter=",")
+    np.savetxt(stem + "_tran.txt", np.asarray(tran).reshape(1, 3), fmt="%6f", delimiter=",")
+    np.savetxt(stem + "_rot.txt", np.asarray(rot).reshape(1, 3), fmt="%6f", delimiter=",")
+
+
+def load_reference_sample(root: str, category: str, index: int):
+    """One sample ``(points, rot, tran)`` of the reference's txt layout, as
+    written, without the loader's sign convention."""
+    stem = os.path.join(root, category, f"{category}_{index:04d}")
+    points = np.loadtxt(stem + ".txt", delimiter=",")
+    rot = np.loadtxt(stem + "_rot.txt", delimiter=",")
+    tran = np.loadtxt(stem + "_tran.txt", delimiter=",")
+    return points, rot, tran
 
 
 def save_ply(path: str, points: np.ndarray) -> None:

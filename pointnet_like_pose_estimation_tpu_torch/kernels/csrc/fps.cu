@@ -31,6 +31,13 @@
 // - Shared path (any C <= 16, any N up to what shared memory holds): the
 //   running distances live in dynamic shared memory and the coordinates are
 //   read through L1, with the same one-barrier reduction.
+// - Global path (any C <= 16, any N): the same loop, with the running
+//   distances in a [B, N] float32 scratch in global memory that the caller
+//   allocates. Each step streams the cloud and its distances through L2
+//   from the one SM of the block: simple and right for clouds above shared
+//   memory, not fast. It needs no dynamic shared memory. Offsets into the
+//   cloud, the scratch and the output are formed in 64 bits, so that B * N
+//   * C may pass 2^31.
 //
 // Rounding: every distance term is formed with __fsub_rn/__fmul_rn/__fadd_rn
 // in channel order, so no multiply-add is contracted into an FMA and the
@@ -45,6 +52,10 @@ namespace {
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxChannels = 16;
 constexpr int kMaxPointsPerThread = 8;
+// codes of the plan's points_per_thread that name the two loops without
+// registers (1, 2, 4 and 8 name the register path)
+constexpr int kSharedPath = 0;
+constexpr int kGlobalPath = -1;
 constexpr unsigned kFull = 0xffffffffu;
 
 // Block-wide argmax of (bits, idx), lower index on ties, with one barrier.
@@ -119,11 +130,15 @@ __global__ void fps_register_kernel(const float* __restrict__ points,  // [B, N,
   }
 }
 
-__global__ void fps_shared_kernel(const float* __restrict__ points,  // [B, N, C]
-                                  const int* __restrict__ start,     // [B]
-                                  int* __restrict__ out,             // [B, S]
-                                  int N, int C, int S) {
-  extern __shared__ float dist[];  // [N]
+// The shared path (kGlobal false: distances in dynamic shared memory) and the
+// global path (kGlobal true: distances in the caller's [B, N] scratch).
+template <bool kGlobal>
+__global__ void fps_dist_kernel(const float* __restrict__ points,  // [B, N, C]
+                                const int* __restrict__ start,     // [B]
+                                int* __restrict__ out,             // [B, S]
+                                float* __restrict__ scratch,       // [B, N], global path only
+                                int N, int C, int S) {
+  extern __shared__ float shared_dist[];  // [N], shared path only
   __shared__ uint2 slots[2 * 32];
 
   const int b = blockIdx.x;
@@ -133,6 +148,7 @@ __global__ void fps_shared_kernel(const float* __restrict__ points,  // [B, N, C
   const int warp = tid >> 5;
   const int num_warps = T >> 5;
   const float* cloud = points + static_cast<size_t>(b) * N * C;
+  float* dist = kGlobal ? scratch + static_cast<size_t>(b) * N : shared_dist;
 
   for (int j = tid; j < N; j += T) dist[j] = 1e10f;  // each thread only ever touches its own j
 
@@ -186,25 +202,32 @@ extern "C" {
 
 // `threads` and `points_per_thread` are the launch plan (kernels/fps.py
 // fps_plan): points_per_thread in {1, 2, 4, 8} takes the register path and
-// needs C == 3 and N <= threads * points_per_thread; 0 takes the shared
-// path. Launches on `stream`; returns the cudaError_t of the launch (0 on
-// success).
-int plpe_fps(const float* points, const int* start, int* out, int B, int N, int C, int S,
-             int threads, int points_per_thread, void* stream) {
+// needs C == 3 and N <= threads * points_per_thread; kSharedPath takes the
+// shared path; kGlobalPath the global path, which needs `scratch`, a [B, N]
+// float32 buffer (ignored by the other paths). N must leave room for a
+// block's stride below 2^31. Launches on `stream`; returns the cudaError_t
+// of the launch (0 on success).
+int plpe_fps(const float* points, const int* start, int* out, float* scratch, int B, int N, int C,
+             int S, int threads, int points_per_thread, void* stream) {
   if (B <= 0 || N <= 0 || S <= 0 || C <= 0 || C > kMaxChannels || threads <= 0 ||
-      threads > kMaxThreads || threads % 32 != 0)
+      threads > kMaxThreads || threads % 32 != 0 || N > 0x7fffffff - kMaxThreads)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (points_per_thread == 0) {
-    const size_t smem = static_cast<size_t>(N) * sizeof(float);
-    err = cudaFuncSetAttribute(fps_shared_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    fps_shared_kernel<<<B, threads, smem, st>>>(points, start, out, N, C, S);
+  if (points_per_thread == kGlobalPath) {
+    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    fps_dist_kernel<true><<<B, threads, 0, st>>>(points, start, out, scratch, N, C, S);
     return static_cast<int>(cudaGetLastError());
   }
-  if (C != 3 || points_per_thread > kMaxPointsPerThread ||
+  if (points_per_thread == kSharedPath) {
+    const size_t smem = static_cast<size_t>(N) * sizeof(float);
+    err = cudaFuncSetAttribute(fps_dist_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fps_dist_kernel<false><<<B, threads, smem, st>>>(points, start, out, nullptr, N, C, S);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (C != 3 || points_per_thread < 0 || points_per_thread > kMaxPointsPerThread ||
       static_cast<long long>(threads) * points_per_thread < N)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (points_per_thread) {

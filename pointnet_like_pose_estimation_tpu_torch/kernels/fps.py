@@ -15,26 +15,36 @@ import torch
 
 from pointnet_like_pose_estimation_tpu_torch.kernels import _build
 
-# the shared path keeps one float of running distance per point in shared memory
-MAX_POINTS = (227 * 1024 - 1024) // 4
+# the shared path keeps one float of running distance per point in shared
+# memory; above it the global path keeps them in a [B, N] scratch tensor
+MAX_SHARED_POINTS = (227 * 1024 - 1024) // 4
 # the register path: C == 3 and at most 8 points a thread (csrc/fps.cu)
 MAX_REGISTER_POINTS = 4096
+# points_per_thread codes of the two paths without registers (csrc/fps.cu
+# kSharedPath, kGlobalPath)
+SHARED_PATH, GLOBAL_PATH = 0, -1
+# int32 indices, and a block's stride past the last point, below 2^31
+_MAX_N = 2**31 - 1 - 1024
 
 
 def fps_plan(N: int, C: int = 3) -> tuple[int, int]:
-    """Launch plan ``(threads, points_per_thread)`` for clouds of N points.
+    """Launch plan ``(threads, points_per_thread)`` for clouds of N >= 1 points.
 
     ``points_per_thread`` in {1, 2, 4, 8} takes the kernel's register path
-    (coordinates and running distances in registers); 0 takes its shared
-    path (distances in shared memory), for C != 3 or N above
-    ``MAX_REGISTER_POINTS``. Few, full threads keep the one barrier of a
-    step cheap; the table was picked by measurement
-    (``scripts/tune_torch_fps.py``, recorded in PERF.md).
+    (coordinates and running distances in registers); ``SHARED_PATH`` its
+    shared path (distances in shared memory), for C != 3 or N above
+    ``MAX_REGISTER_POINTS``; ``GLOBAL_PATH`` its global path (distances in
+    a scratch tensor in device memory), for N above ``MAX_SHARED_POINTS``.
+    Few, full threads keep the one barrier of a step cheap; the table was
+    picked by measurement (``scripts/tune_torch_fps.py``, recorded in
+    PERF.md).
     """
-    if not 0 < N <= MAX_POINTS:
-        raise ValueError(f"fps: N={N} outside (0, {MAX_POINTS}]")
+    if N < 1:
+        raise ValueError(f"fps: N={N} outside the clouds FPS takes (N >= 1)")
+    if N > MAX_SHARED_POINTS:
+        return 1024, GLOBAL_PATH
     if C != 3 or N > MAX_REGISTER_POINTS:
-        return 1024, 0
+        return 1024, SHARED_PATH
     if N <= 128:
         return 32 * ((N + 31) // 32), 1
     if N <= 256:
@@ -98,14 +108,20 @@ def fps(points: torch.Tensor, num_samples: int, start_idx=0) -> torch.Tensor:
     B, N, C = points.shape
     if num_samples <= 0 or not 0 < C <= 16:
         raise ValueError(f"fps: S={num_samples} <= 0 or C={C} outside (0, 16]")
+    if N > _MAX_N:
+        raise ValueError(f"fps: N={N} above {_MAX_N}: the indices are int32")
     threads, points_per_thread = fps_plan(N, C)
     points = points.contiguous()
     start = _start_tensor(start_idx, B, N, points.device)
     out = torch.empty((B, num_samples), dtype=torch.int32, device=points.device)
+    # the global path's running distances, allocated on the caller's stream
+    scratch = (torch.empty((B, N), dtype=torch.float32, device=points.device)
+               if points_per_thread == GLOBAL_PATH else None)
     lib = _build.library("fps")
-    lib.plpe_fps.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.plpe_fps.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     code = lib.plpe_fps(
-        points.data_ptr(), start.data_ptr(), out.data_ptr(), B, N, C, num_samples,
+        points.data_ptr(), start.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), B, N, C, num_samples,
         threads, points_per_thread,
         torch.cuda.current_stream(points.device).cuda_stream,
     )

@@ -78,3 +78,9 @@ def euler_rotation_matrix(angles_rad: torch.Tensor) -> torch.Tensor:
     ry = mat([[cb, z, sb], [z, o, z], [-sb, z, cb]])
     rz = mat([[cc, -sc, z], [sc, cc, z], [z, z, o]])
     return rx @ ry @ rz
+
+
+def rotate_euler(points: torch.Tensor, angles_rad: torch.Tensor) -> torch.Tensor:
+    """Rotate ``[..., N, 3]`` clouds by X.Y.Z Euler angles ``[..., 3]``
+    (broadcast over the leading dims): ``points @ R^T``."""
+    return points @ euler_rotation_matrix(angles_rad).transpose(-1, -2)

@@ -1,6 +1,7 @@
-"""ctypes binding of the port's native DBSCAN (``_native/pcnative.cpp``, a
-copy of the JAX package's source, whose radius counts and CSV reader are not
-bound: the radius test runs on the device, the CSV layout is not ported).
+"""ctypes binding of the port's native library (``_native/pcnative.cpp``, a
+copy of the JAX package's source): DBSCAN and the threaded CSV reader of the
+reference's txt layout. Its radius counts are not bound: the radius test
+runs on the device.
 
 The library is built with g++ at first use into ``build/torch_native/`` at
 the root of the checkout, never into the package, under a name that hashes
@@ -50,6 +51,10 @@ def library() -> ctypes.CDLL:
     lib.pc_dbscan.restype = ctypes.c_int32
     lib.pc_dbscan.argtypes = [ctypes.POINTER(ctypes.c_double), ctypes.c_int32, ctypes.c_double,
                               ctypes.c_int32, ctypes.POINTER(ctypes.c_int64)]
+    lib.pc_load_csv_files.restype = ctypes.c_int32
+    lib.pc_load_csv_files.argtypes = [ctypes.c_char_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+                                      ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32),
+                                      ctypes.c_int32]
     _lib = lib
     return lib
 
@@ -62,3 +67,21 @@ def dbscan(xyz: np.ndarray, eps: float, min_points: int) -> np.ndarray:
     library().pc_dbscan(pts.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), len(pts), float(eps),
                         int(min_points), labels.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
     return labels
+
+
+def load_csv_files(paths: list[str], max_rows: int, cols: int,
+                   n_threads: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """Parse comma-separated float files on a pool of ``n_threads`` host
+    threads (0: one per core, at most 16): ``(values [n, max_rows, cols]
+    float32, rows [n] int32)``, each file's rows zero-padded past its
+    ``rows[i]``, rows beyond ``max_rows`` skipped, and ``rows[i] == -1`` for
+    a file that cannot be read."""
+    n = len(paths)
+    blob = b"\0".join(os.fsencode(p) for p in paths) + b"\0"
+    values = np.empty((n, max_rows, cols), dtype=np.float32)
+    rows = np.empty((n,), dtype=np.int32)
+    library().pc_load_csv_files(blob, n, int(max_rows), int(cols),
+                                values.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                                rows.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                                int(n_threads or min(os.cpu_count() or 1, 16)))
+    return values, rows

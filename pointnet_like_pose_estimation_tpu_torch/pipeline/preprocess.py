@@ -33,7 +33,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pointnet_like_pose_estimation_tpu_torch.kernels.fps import MAX_POINTS as FPS_MAX_POINTS
 from pointnet_like_pose_estimation_tpu_torch.ops import farthest_point_sample, index_points
 from pointnet_like_pose_estimation_tpu_torch.pipeline import native_dbscan
 from pointnet_like_pose_estimation_tpu_torch.utils.device import resolve_device
@@ -265,15 +264,9 @@ def dbscan(points: np.ndarray, eps: float = 0.03, min_points: int = 500, *,
 
 
 def cluster_groups(labels: np.ndarray) -> list[np.ndarray]:
-    """The point indices of each cluster, in label order; raises for a
-    cluster the FPS kernel cannot take (above ``FPS_MAX_POINTS`` points),
-    on the CPU as on the card."""
-    groups = [np.flatnonzero(labels == c) for c in range(int(labels.max()) + 1)]
-    for c, g in enumerate(groups):
-        if len(g) > FPS_MAX_POINTS:
-            raise ValueError(f"cluster {c} holds {len(g)} points, above the {FPS_MAX_POINTS} the "
-                             "FPS kernel takes (kernels/fps.py MAX_POINTS)")
-    return groups
+    """The point indices of each cluster, in label order. A cluster of any
+    size is taken: FPS runs on clouds of any number of points."""
+    return [np.flatnonzero(labels == c) for c in range(int(labels.max()) + 1)]
 
 
 def truncate_clusters(xyz: torch.Tensor, groups: list[np.ndarray]):

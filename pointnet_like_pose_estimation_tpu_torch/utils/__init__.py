@@ -1,1 +1,12 @@
-"""Utilities of the port."""
+"""Utilities of the port: timing and tracing (``profiling``), headless and
+interactive visualisation (``viz``, ``viz_interactive``), checkpoints and
+the device rule."""
+
+from pointnet_like_pose_estimation_tpu_torch.utils.profiling import (
+    StepTimer,
+    sustained_step_time,
+    sustained_time,
+    trace,
+)
+
+__all__ = ["StepTimer", "sustained_step_time", "sustained_time", "trace"]

@@ -3,7 +3,7 @@
 For clouds of N = 512, 1024 and 2048 points (the three FPS calls of one
 serving request of 32 clusters: SA2, SA1 and the resample) this times
 csrc/fps.cu under every (threads, points per thread) that covers N on the
-register path, and under the shared path, with CUDA events, and prints
+register path, and under the shared and the global path, with CUDA events, and prints
 microseconds per step beside the plan ``kernels/fps.py`` ``fps_plan``
 picks. Every variant's indices must equal the plain version's.
 
@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from pointnet_like_pose_estimation_tpu_torch.kernels import _build
-from pointnet_like_pose_estimation_tpu_torch.kernels.fps import fps_plan, fps_reference
+from pointnet_like_pose_estimation_tpu_torch.kernels.fps import GLOBAL_PATH, fps_plan, fps_reference
 
 CALLS = [(2048, 1024), (1024, 512), (512, 128)]   # (N, S) of resample, SA1, SA2
 CLOUDS = 32
@@ -32,7 +32,9 @@ REPS = 20
 
 def launch(lib, pts, start, out, threads, ppt):
     B, N, C = pts.shape
-    code = lib.plpe_fps(pts.data_ptr(), start.data_ptr(), out.data_ptr(), B, N, C, out.shape[1],
+    scratch = torch.empty((B, N), dtype=torch.float32, device="cuda") if ppt == GLOBAL_PATH else None
+    code = lib.plpe_fps(pts.data_ptr(), start.data_ptr(), out.data_ptr(),
+                        None if scratch is None else scratch.data_ptr(), B, N, C, out.shape[1],
                         threads, ppt, torch.cuda.current_stream().cuda_stream)
     _build.check(lib, code, "fps")
 
@@ -45,7 +47,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     lib = _build.library("fps")
-    lib.plpe_fps.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.plpe_fps.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     rng = np.random.default_rng(0)
     rows = []
     for N, S in CALLS:
@@ -53,7 +55,7 @@ def main() -> int:
         start = torch.zeros(CLOUDS, dtype=torch.int32, device="cuda")
         want = fps_reference(pts, S)
         plans = [(t, p) for p in (1, 2, 4, 8) for t in (128, 256, 512, 1024) if N <= t * p < 4 * N]
-        plans += [(t, 0) for t in (256, 512, 1024)]
+        plans += [(t, p) for p in (0, GLOBAL_PATH) for t in (256, 512, 1024)]
         for threads, ppt in plans:
             out = torch.empty((CLOUDS, S), dtype=torch.int32, device="cuda")
             launch(lib, pts, start, out, threads, ppt)

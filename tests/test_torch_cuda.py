@@ -54,6 +54,8 @@ def _clouds(B, N, seed):
         (2, 777, 6, 128),      # C != 3 takes the shared path too
         (3, 1024, 10, 512),    # a pose head's SA1: the spliced cloud's 10 channels
         (3, 512, 10, 128),     # a pose head's SA2
+        (2, 57_857, 3, 128),   # above shared memory: distances in a scratch tensor in device memory
+        (1, 70_000, 10, 64),   # the global path at the spliced cloud's 10 channels
     ],
 )
 def test_fps_kernel_matches_plain_version(card, B, N, C, S):

@@ -12,7 +12,7 @@ from pointnet_like_pose_estimation_tpu.data import augment as jax_aug
 from pointnet_like_pose_estimation_tpu.data import dataset as jax_dataset
 from pointnet_like_pose_estimation_tpu.data import generators as jax_generators
 from pointnet_like_pose_estimation_tpu_torch.data import augment, dataset, generators
-from pointnet_like_pose_estimation_tpu_torch.kernels.fps import MAX_POINTS
+from pointnet_like_pose_estimation_tpu_torch.kernels.fps import MAX_SHARED_POINTS, fps_reference
 
 N_POINTS = 64
 
@@ -98,7 +98,7 @@ def test_split_loader_and_batches_equal_the_jax_package(both_datasets):
                 np.testing.assert_array_equal(x[key], y[key])
 
 
-def test_batched_fps_pads_and_refuses_oversized_clouds():
+def test_batched_fps_pads_and_samples_clouds_above_the_old_cap():
     rng = np.random.default_rng(2)
     dense = [rng.standard_normal((n, 3)) for n in (50, 1100)]
     got = dataset._batched_fps(dense, 16, device="cpu")
@@ -106,8 +106,11 @@ def test_batched_fps_pads_and_refuses_oversized_clouds():
     for cloud, sampled in zip(dense, got):
         np.testing.assert_array_equal(sampled[0], cloud[0].astype(np.float32))
         assert len(np.unique(sampled, axis=0)) == 16          # the pad is never picked
-    with pytest.raises(ValueError, match="above the FPS kernel"):
-        dataset._batched_fps([np.zeros((MAX_POINTS + 1, 3))], 4, device="cpu")
+    # above what the FPS kernel's shared path holds: sampled all the same
+    big = rng.standard_normal((MAX_SHARED_POINTS + 1, 3)).astype(np.float32)
+    got = dataset._batched_fps([big], 8, device="cpu")
+    want = big[fps_reference(torch.from_numpy(big[None]), 8)[0].numpy()]
+    np.testing.assert_array_equal(got[0], want)
 
 
 @pytest.mark.parametrize("compat_first3", [False, True])

@@ -48,7 +48,7 @@ from pointnet_like_pose_estimation_tpu.pipeline import deproject as jax_deprojec
 from pointnet_like_pose_estimation_tpu.pipeline import preprocess as jpp
 from pointnet_like_pose_estimation_tpu_torch import cli
 from pointnet_like_pose_estimation_tpu_torch.data import io_utils
-from pointnet_like_pose_estimation_tpu_torch.kernels.fps import MAX_POINTS, fps_reference
+from pointnet_like_pose_estimation_tpu_torch.kernels.fps import MAX_SHARED_POINTS, fps_reference
 from pointnet_like_pose_estimation_tpu_torch.pipeline import GraspPipeline, PipelineConfig
 from pointnet_like_pose_estimation_tpu_torch.pipeline import preprocess as pp
 from pointnet_like_pose_estimation_tpu_torch.pipeline.camera import RealSenseCamera
@@ -291,12 +291,26 @@ def test_cluster_point_matches_jax_off_lattice():
     np.testing.assert_array_equal(got, want)
 
 
-def test_a_cluster_above_the_fps_limit_raises():
-    labels = np.zeros(MAX_POINTS + 11, np.int64)
+def test_a_cluster_above_the_old_fps_limit_is_kept(monkeypatch):
+    """A cluster above what the FPS kernel's shared path holds is kept, and
+    a 60,000-point cluster beside a small one (random points, so no ties)
+    is truncated to the JAX package's points, through ``truncate_clusters``
+    and ``cluster_point`` (both packages' DBSCAN given the labels)."""
+    labels = np.zeros(MAX_SHARED_POINTS + 11, np.int64)
     labels[:10] = 1
-    with pytest.raises(ValueError, match=f"cluster 0 holds {MAX_POINTS + 1} points"):
-        pp.cluster_groups(labels)
-    assert [len(g) for g in pp.cluster_groups(labels[11:])] == [MAX_POINTS]
+    assert [len(g) for g in pp.cluster_groups(labels)] == [MAX_SHARED_POINTS + 1, 10]
+    rng = np.random.default_rng(12)
+    points = rng.uniform(-0.2, 0.2, (60_300, 3)).astype(np.float32)
+    labels = np.zeros(len(points), np.int64)
+    labels[rng.choice(len(points), 300, replace=False)] = 1
+    monkeypatch.setattr(jpp, "dbscan", lambda *args, **kw: labels)
+    monkeypatch.setattr(pp, "dbscan", lambda *args, **kw: labels)
+    want = jpp.cluster_point(points, 0.03, 500)
+    assert want.shape == (2, 300, 3)
+    got, idx = pp.truncate_clusters(torch.from_numpy(points), pp.cluster_groups(labels))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(points[idx.numpy()], want)
+    np.testing.assert_array_equal(pp.cluster_point(points, 0.03, 500, device="cpu"), want)
 
 
 # --- the pipeline ---------------------------------------------------------------------------

@@ -13,8 +13,10 @@ import torch
 
 from pointnet_like_pose_estimation_tpu_torch.kernels import fused_sa
 from pointnet_like_pose_estimation_tpu_torch.kernels.fps import (
-    MAX_POINTS,
+    GLOBAL_PATH,
     MAX_REGISTER_POINTS,
+    MAX_SHARED_POINTS,
+    SHARED_PATH,
     fps_plan,
 )
 from pointnet_like_pose_estimation_tpu_torch.kernels.fused_sa import (
@@ -135,7 +137,7 @@ def test_fused_sa_cpu_tensor_takes_what_only_the_kernel_refuses(P, ks, widths, r
 
 
 def _constant(source: str, name: str) -> int:
-    m = re.search(rf"constexpr int {name} = (\d+);", source)
+    m = re.search(rf"constexpr int {name} = (-?\d+);", source)
     assert m, name
     return int(m.group(1))
 
@@ -152,6 +154,8 @@ def test_python_mirrors_the_kernel_constants():
     assert fused_sa._WARPS * 32 == _constant(cu, "kThreads")
     fps_cu = (CSRC / "fps.cu").read_text()
     assert MAX_REGISTER_POINTS == 512 * _constant(fps_cu, "kMaxPointsPerThread")
+    assert SHARED_PATH == _constant(fps_cu, "kSharedPath")
+    assert GLOBAL_PATH == _constant(fps_cu, "kGlobalPath")
 
 
 @pytest.mark.parametrize(
@@ -164,16 +168,20 @@ def test_python_mirrors_the_kernel_constants():
         (3000, 512, 8),
         (4096, 512, 8),
         (4097, 1024, 0),          # above the register path: distances in shared memory
-        (MAX_POINTS, 1024, 0),
+        (MAX_SHARED_POINTS, 1024, 0),
+        (MAX_SHARED_POINTS + 1, 1024, -1),     # above shared memory: distances in device memory
+        (300_000, 1024, -1),      # a near object of a 640x480 frame
     ],
 )
 def test_fps_plan(N, threads, points_per_thread):
     assert fps_plan(N) == (threads, points_per_thread)
     assert threads % 32 == 0 and threads <= 1024
-    if points_per_thread:
+    if points_per_thread > 0:
         assert points_per_thread in (1, 2, 4, 8) and threads * points_per_thread >= N
-    else:
+    elif points_per_thread == SHARED_PATH:
         assert 4 * N <= 227 * 1024 - 1024
+    else:
+        assert points_per_thread == GLOBAL_PATH and 4 * N > 227 * 1024 - 1024
 
 
 @pytest.mark.parametrize("N", [1, 31, 33, 129, 257, 513, 1025, 2049])
@@ -185,9 +193,10 @@ def test_fps_register_plan_covers_every_size(N):
 
 def test_fps_plan_other_channel_counts_take_the_shared_path():
     assert fps_plan(512, C=6) == (1024, 0)
+    assert fps_plan(70_000, C=10) == (1024, GLOBAL_PATH)
 
 
-@pytest.mark.parametrize("N", [0, MAX_POINTS + 1])
+@pytest.mark.parametrize("N", [0, -1])
 def test_fps_plan_refuses_what_no_path_holds(N):
     with pytest.raises(ValueError, match="outside"):
         fps_plan(N)

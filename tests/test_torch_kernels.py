@@ -39,6 +39,15 @@ def test_fps_reference_matches_pallas_and_xla(with_start):
     assert got.dtype == np.int32
 
 
+def test_fps_reference_above_the_shared_limit_matches_xla():
+    """60,000 points, above the 57,856 that the kernel's shared path holds:
+    the plain version (the global path's reference on the card) picks the
+    JAX package's indices."""
+    pts = _unit_clouds(np.random.default_rng(4), (1, 60_000, 3))
+    got = fps_reference(torch.from_numpy(pts), 64).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jax_fps(jnp.asarray(pts), 64)))
+
+
 def test_fps_ties_take_the_lowest_index():
     """A tiled cloud (the resample path for M < num_points) holds exact
     duplicates, so the argmax ties; the first index must win."""

@@ -79,3 +79,55 @@ def test_splice_onehot():
     got = splice_onehot(_t(CLOUD), _t(labels), 7).numpy()
     want = np.asarray(jax_splice_onehot(jnp.asarray(CLOUD), jnp.asarray(labels), 7))
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["one_cloud", "batched"])
+def test_rotate_euler(batched):
+    """``points @ R^T`` over the leading dims, within 1e-6 of the JAX
+    package's einsum (unit-scale clouds, float32 sums of three terms)."""
+    pts = CLOUD if batched else CLOUD[0]
+    ang = RNG.uniform(-np.pi, np.pi, (2, 3) if batched else (3,)).astype(np.float32)
+    got = tops.rotate_euler(_t(pts), _t(ang)).numpy()
+    want = np.asarray(jops.rotate_euler(jnp.asarray(pts), jnp.asarray(ang)))
+    assert got.shape == want.shape == pts.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def test_random_sample_on_the_jax_package_s_draws():
+    """Fed the scores that JAX's ``random_sample`` draws from its key, the
+    port picks the same points in the same order; its own generator path
+    gives distinct points, the same ones from the same seed."""
+    import jax
+
+    from pointnet_like_pose_estimation_tpu_torch.ops.sampling import draw_scores, sample_by_scores
+
+    key = jax.random.PRNGKey(3)
+    scores = np.array(jax.random.uniform(key, (2, 128)))
+    got = sample_by_scores(_t(FEAT), _t(scores), 40).numpy()
+    want = np.asarray(jops.random_sample(key, jnp.asarray(FEAT), 40))
+    np.testing.assert_array_equal(got, want)
+    pts = _t(np.arange(2 * 128 * 3, dtype=np.float32).reshape(2, 128, 3))
+    a = tops.random_sample(pts, 100, torch.Generator().manual_seed(0))
+    b = tops.random_sample(pts, 100, torch.Generator().manual_seed(0))
+    assert a.shape == (2, 100, 3) and torch.equal(a, b)
+    assert all(len(np.unique(c[:, 0].numpy())) == 100 for c in a)
+    assert draw_scores(2, 128, torch.Generator()).dtype == torch.float32
+
+
+def test_farthest_point_sample_key_on_the_jax_package_s_draws():
+    """JAX's ``key`` draws the start indices uniformly; fed those indices,
+    the port's FPS picks JAX's points. A generator draws the port's own
+    start indices, in [0, N), the same ones from the same seed."""
+    import jax
+
+    from pointnet_like_pose_estimation_tpu_torch.ops.sampling import draw_start
+
+    key = jax.random.PRNGKey(11)
+    start = np.array(jax.random.randint(key, (2,), 0, 128, dtype=jnp.int32))
+    got = tops.farthest_point_sample(_t(CLOUD), 32, start_idx=_t(start)).numpy()
+    want = np.asarray(jops.farthest_point_sample(jnp.asarray(CLOUD), 32, key=key))
+    np.testing.assert_array_equal(got, want)
+    starts = draw_start(1000, 128, torch.Generator().manual_seed(1))
+    assert starts.dtype == torch.int32 and 0 <= int(starts.min()) and int(starts.max()) < 128
+    idx = tops.farthest_point_sample(_t(CLOUD), 8, generator=torch.Generator().manual_seed(1))
+    assert torch.equal(idx[:, 0], draw_start(2, 128, torch.Generator().manual_seed(1)))
