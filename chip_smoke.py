@@ -114,6 +114,29 @@ Phases, any failure exits non-zero:
    nothing, another --epochs refused); a request of 4 clusters timed by
    utils.profiling.sustained_time beside the smoke's own loop.
 
+12. the parallel phase (ROADMAP item 10, parallel/): ranks spawned from
+   this script on the one card, joined through a FileStore under
+   build/chip_smoke_parallel, every rank's exit code and report checked.
+   World size 1 on NCCL: one DP train step of pointnet2_cls_ssg at batch 24
+   from the r3 checkpoint against the single-process step on the card on
+   the same draws (the train phase's rule: loss, metric, BN statistics
+   within TRAIN_TOL, gradients element by element or by TIED_GRADIENTS),
+   with the launch counts set to 0 just before it and read just after (FPS
+   and the ball query twice each) and its collective traffic; training
+   clouds/s of the DP and the single step at B = 24 and 256, in turns.
+   Two ranks on gloo sharing the card: the same step on 12 rows a rank
+   against the single step; sharded FPS at 1 x 300,000 -> 512 equal to the
+   FPS kernel's global path, ms a step beside the kernel's; the sharded
+   groupings at SSG SA1 and MSG SA1 (24 x 1024 -> 512) equal to the
+   kernels' outputs; a point-sharded forward of the r3 classifier (two
+   dispatches, classes equal, log-probs within SHARDED_FORWARD_TOL); one TP
+   step of rotation on {"data": 1, "model": 2} against the single step
+   (loss within TP_LOSS_RTOL, BN statistics within TP_STATS_*). Then
+   torchrun --nproc-per-node 1 ... cli train --data-parallel for 2 epochs
+   and resumed for a third, cli eval of its best.pt equal to evaluate; and
+   MultiHeadParallel on the r3 checkpoints equal to infer_clusters, its
+   latency beside it at 4 and 32 clusters.
+
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1207,17 +1230,19 @@ def bf16_train_step_check(device, name, experiment, per_step, data_path) -> dict
     return out
 
 
-def train_throughput(device, name, B, data, dtype="float32") -> dict:
+def train_throughput(device, name, B, data, dtype="float32", make_step=None, span_ms=2000.0) -> dict:
     """Training clouds/s at batch B in ``dtype``: train steps on batches
     drawn on the card from the resident split, CUDA events around spans of
-    2 s or more, median of 3; peak device memory over the spans."""
+    ``span_ms`` or more, median of 3; peak device memory over the spans.
+    ``make_step(spec, cfg)`` builds the step (``make_train_step`` unless
+    given)."""
     import torch
 
     from pointnet_like_pose_estimation_tpu_torch.train import TrainConfig, build_state, make_train_step
 
     cfg = TrainConfig.for_model(name, batch_size=B, dtype=dtype)
-    spec, state = build_state(cfg)                                         # default: cuda
-    step = make_train_step(spec, cfg)
+    spec, state = build_state(cfg, device)
+    step = (make_step or make_train_step)(spec, cfg)
     n = data["labels"].shape[0]
 
     def run(steps):
@@ -1235,13 +1260,13 @@ def train_throughput(device, name, B, data, dtype="float32") -> dict:
 
     run(3)
     torch.cuda.synchronize()
-    steps = max(1, int(np.ceil(2000.0 / (span(5) / 5))))
+    steps = max(1, int(np.ceil(span_ms / (span(5) / 5))))
     torch.cuda.reset_peak_memory_stats()
     spans = []
     while len(spans) < 3:
         ms = span(steps)
-        if ms < 2000.0:         # the calibration ran fast: lengthen the span and start over
-            steps, spans = int(np.ceil(steps * 2000.0 / ms)) + 1, []
+        if ms < span_ms:        # the calibration ran fast: lengthen the span and start over
+            steps, spans = int(np.ceil(steps * span_ms / ms)) + 1, []
         else:
             spans.append(ms)
     ms = statistics.median(spans)
@@ -1935,6 +1960,379 @@ def data_phase(device, pipe, kernels: list[dict]) -> dict:
     return report
 
 
+PARALLEL_WORK = os.path.join(ROOT, "build", "chip_smoke_parallel")
+R3_CLASSIFIER = "classification/r3_pointnet2_cls_ssg"
+# sharded FPS against the kernel's global path: B, N, S
+SHARDED_FPS = (1, 300_000, 512)
+# the DP step against the single-process step: a train step on the card's
+# float32 arithmetic, summed over the rows in another order (each rank's
+# rows, then the all-reduce)
+PARALLEL_TRAIN_TOL = TRAIN_TOL
+# the TP step against the single step: JAX's test_tp_step_matches_single_device_step
+TP_LOSS_RTOL, TP_STATS_RTOL, TP_STATS_ATOL = 1e-4, 1e-3, 1e-5
+# the point-sharded forward against the unsharded one: the same selection,
+# the same MLP; log-probabilities within
+SHARDED_FORWARD_TOL = 1e-4
+
+
+def parallel_rank(rank, world, backend, task, work):
+    """One spawned rank of the parallel phase: joins a ``backend`` group of
+    ``world`` ranks through a FileStore under ``work``, runs
+    PARALLEL_TASKS[task] on the one card and writes its report; any failure
+    raises, and the phase fails on a rank's exit code."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    os.environ["LOCAL_RANK"] = "0"                  # every rank on the one card
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(work, f"store-{task}"), world),
+                            rank=rank, world_size=world)
+    try:
+        report = PARALLEL_TASKS[task](rank, world, torch.device("cuda", 0))
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(work, f"{task}-rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def spawn_ranks(task: str, world: int, backend: str, timeout: float = 600.0) -> list[dict]:
+    """Run ``task`` on ``world`` spawned ranks; every rank's exit code and
+    report are checked."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(parallel_rank, args=(world, backend, task, PARALLEL_WORK), nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise SmokeFailure(f"parallel {task}: ranks still running after {timeout} s")
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+        raise SmokeFailure(f"parallel {task}: a rank failed:\n{e}") from e
+    reports = []
+    for r in range(world):
+        with open(os.path.join(PARALLEL_WORK, f"{task}-rank{r}.json")) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def step_inputs(device, name, experiment, seed):
+    """The smoke's train batch (24 clouds of every class of the generated
+    dataset), the committed model on the CPU, and draws made once on the CPU,
+    moved to ``device``."""
+    import torch
+
+    from pointnet_like_pose_estimation_tpu_torch.data import PoseDataset, load_dataset
+    from pointnet_like_pose_estimation_tpu_torch.models import build_model
+    from pointnet_like_pose_estimation_tpu_torch.train import TrainConfig, draw_step, load_checkpoint
+    from pointnet_like_pose_estimation_tpu_torch.train.loop import _device_data
+
+    ds = load_dataset(os.path.join(ROOT, "build", "chip_smoke_dataset.npz"), "train")
+    pick = np.linspace(0, len(ds) - 1, TRAIN_BATCH).astype(int)
+    cpu_batch = _device_data(PoseDataset(**{k: getattr(ds, k)[pick] for k in
+                                            ("points", "labels", "rot", "tran", "sign", "width")}), "cpu")
+    cfg = TrainConfig.for_model(name, batch_size=TRAIN_BATCH)
+    model, _ = load_checkpoint(os.path.join(ROOT, "log", experiment, "checkpoints", "best.msgpack"),
+                               build_model(name))
+    draws = draw_step(cfg, model, cpu_batch, torch.Generator().manual_seed(seed))
+    return (cfg, model, {k: v.to(device) for k, v in cpu_batch.items()},
+            {part: {k: v.to(device) for k, v in d.items()} for part, d in draws.items()})
+
+
+def hold_step(what, name, got_model, want_model, got_out, want_out) -> dict:
+    """A parallel step against the single-process step on the card, by the
+    train phase's rule: loss, metric and BatchNorm statistics within
+    TRAIN_TOL, every gradient within TRAIN_TOL element by element (absolute
+    times the model's largest gradient element) or, for TIED_GRADIENTS, by
+    relative L2."""
+    import torch
+
+    def gap(a, b):
+        return float((a.detach().double() - b.detach().double()).abs().max())
+
+    for key in ("loss", "metric"):
+        check(torch.allclose(got_out[key].double(), want_out[key].double(), rtol=PARALLEL_TRAIN_TOL,
+                             atol=PARALLEL_TRAIN_TOL), f"{what}: {key} {float(got_out[key])} against "
+              f"{float(want_out[key])}")
+    tied, bound = TIED_GRADIENTS.get(name, ((), 0.0))
+    want_params = dict(want_model.named_parameters())
+    scale = max(1.0, max(float(p.grad.abs().max()) for p in want_params.values()))
+    worst = {"gradient": 0.0, "statistic": 0.0}
+    for k, p in got_model.named_parameters():
+        g, w = p.grad, want_params[k].grad
+        worst["gradient"] = max(worst["gradient"], gap(g, w))
+        if torch.allclose(g, w, rtol=PARALLEL_TRAIN_TOL, atol=PARALLEL_TRAIN_TOL * scale):
+            continue
+        rel = float((g - w).norm() / w.norm())
+        check(k.startswith(tied) and rel <= bound, f"{what}: gradient {k} differs by {gap(g, w)} (relative "
+              f"L2 {rel})")
+    want_state = want_model.state_dict()
+    for k, v in got_model.state_dict().items():
+        if k.endswith(("running_mean", "running_var")):
+            worst["statistic"] = max(worst["statistic"], gap(v, want_state[k]))
+            check(torch.allclose(v, want_state[k], rtol=PARALLEL_TRAIN_TOL, atol=PARALLEL_TRAIN_TOL),
+                  f"{what}: statistic {k} differs by {gap(v, want_state[k])}")
+    return {"loss": float(got_out["loss"]), "max_abs_diff": worst, "gradient_scale": scale}
+
+
+def dp_step_check(device, mesh, what) -> dict:
+    """One DP train step of pointnet2_cls_ssg on this rank's rows against
+    the single-process step on the card on the same draws, with the launch
+    counts set to 0 just before the DP step and read just after, and the
+    step's collective traffic."""
+    import torch
+
+    from pointnet_like_pose_estimation_tpu_torch import parallel as P
+    from pointnet_like_pose_estimation_tpu_torch.kernels.ball_group import ball_query_multi
+    from pointnet_like_pose_estimation_tpu_torch.kernels.fps import fps
+    from pointnet_like_pose_estimation_tpu_torch.models import get_model_spec
+    from pointnet_like_pose_estimation_tpu_torch.train import make_optimizer, make_train_step
+    from pointnet_like_pose_estimation_tpu_torch.utils.collectives import (
+        collective_traffic,
+        reset_collective_traffic,
+    )
+
+    name = "pointnet2_cls_ssg"
+    cfg, model, batch, draws = step_inputs(device, name, R3_CLASSIFIER, 31)
+    spec = get_model_spec(name)
+    single = copy.deepcopy(model).to(device)
+    want = make_train_step(spec, cfg)(single, make_optimizer(cfg, single.parameters())[0], batch, draws=draws)
+    dp = P.replicate(copy.deepcopy(model).to(device), mesh)
+    rows = P.batch_sharding(mesh, len(batch["points"]))
+    local = {part: None if d is None else {k: v[rows] for k, v in d.items()} for part, d in draws.items()}
+    step = P.make_parallel_train_step(spec, cfg, mesh)
+    opt = make_optimizer(cfg, dp.parameters())[0]
+    torch.cuda.synchronize()
+    reset_collective_traffic()
+    fps.launches = ball_query_multi.launches = 0
+    got = step(dp, opt, {k: v[rows] for k, v in batch.items()}, draws=local)
+    torch.cuda.synchronize()
+    launches = {"fps": fps.launches, "ball_query": ball_query_multi.launches}
+    check(launches == {"fps": 2, "ball_query": 2}, f"{what}: launches {launches}, want 2 of each a step")
+    report = hold_step(what, name, dp, single, got, want)
+    report.update(launches=launches, rows=[rows.start, rows.stop], traffic=collective_traffic())
+    return report
+
+
+def nccl_world_one(rank, world, device) -> dict:
+    """World size 1 on NCCL: the DP step against the single step, then
+    training clouds/s of the DP step and of the single step at B = 24 and
+    256, in turns."""
+    from pointnet_like_pose_estimation_tpu_torch import parallel as P
+    from pointnet_like_pose_estimation_tpu_torch.data import load_dataset
+    from pointnet_like_pose_estimation_tpu_torch.train import make_train_step
+    from pointnet_like_pose_estimation_tpu_torch.train.loop import _device_data
+
+    mesh = P.make_mesh()                                                     # default: cuda
+    report = {"step": dp_step_check(device, mesh, "DP step, NCCL world 1"), "throughput": {}}
+    data = _device_data(load_dataset(os.path.join(ROOT, "build", "chip_smoke_dataset.npz"), "train"), device)
+    for B in (24, 256):
+        for kind, make in (("single", make_train_step),
+                           ("dp", lambda spec, cfg: P.make_parallel_train_step(spec, cfg, mesh))):
+            report["throughput"][f"{kind} B={B}"] = train_throughput(device, "pointnet2_cls_ssg", B, data,
+                                                                     make_step=make, span_ms=1000.0)
+    return report
+
+
+def gloo_world_two(rank, world, device) -> dict:
+    """Two ranks on gloo sharing the card: the DP step against the single
+    step; sharded FPS, grouping and a point-sharded forward against the
+    kernels; a TP step of rotation against the single step."""
+    import torch
+    import torch.distributed as dist
+
+    from pointnet_like_pose_estimation_tpu_torch import parallel as P
+    from pointnet_like_pose_estimation_tpu_torch.kernels.ball_group import ball_query_multi
+    from pointnet_like_pose_estimation_tpu_torch.kernels.fps import fps
+    from pointnet_like_pose_estimation_tpu_torch.models import build_model, get_model_spec
+    from pointnet_like_pose_estimation_tpu_torch.ops import index_points, normalize_cloud
+    from pointnet_like_pose_estimation_tpu_torch.train import load_checkpoint, make_optimizer, make_train_step
+
+    report = {"step": dp_step_check(device, P.make_mesh(), "DP step, gloo world 2")}
+    mesh = P.make_mesh({"points": world})
+
+    # sharded FPS at 300,000 points against the kernel's global path
+    B, N, S = SHARDED_FPS
+    pts = torch.from_numpy(unit_clouds(np.random.default_rng(21), B, N)).to(device)
+    want = fps(pts, S)
+    times = []
+    for _ in range(2):                                   # the second call is timed
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = P.sharded_farthest_point_sample(pts, S, mesh)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    check(torch.equal(got, want), "sharded FPS at 300,000 points differs from the FPS kernel")
+    kernel_ms = cuda_ms(lambda: fps(pts, S), 3) if rank == 0 else None
+    dist.barrier()
+    report["sharded_fps"] = {"shape": [B, N, S], "ms_per_step": 1e3 * times[-1] / S, "first_call_s": times[0],
+                             "kernel_us_per_step": None if kernel_ms is None else 1e3 * kernel_ms / S}
+
+    # the groupings at SSG SA1 and MSG SA1 against the kernels
+    pts = torch.from_numpy(unit_clouds(np.random.default_rng(22), TRAIN_BATCH, 1024)).to(device)
+    cent = index_points(pts, fps(pts, 512))
+    for what, radii, ks in (("SSG SA1", *SSG_SA1), ("MSG SA1", *MSG_SA1)):
+        idx_all = ball_query_multi(pts, cent, radii, ks)
+        if len(ks) == 1:
+            got_c, grouped = P.sharded_sample_and_group(pts, None, 512, ks[0], radii[0], mesh)
+            grouped = [grouped]
+        else:
+            got_c, grouped = P.sharded_sample_and_group_multi(pts, None, 512, radii, ks, mesh)
+        check(torch.equal(got_c, cent), f"sharded grouping {what}: centroids differ from the kernels'")
+        lo = 0
+        for g, K in zip(grouped, ks):
+            want_g = index_points(pts, idx_all[..., lo:lo + K]) - cent[:, :, None, :]
+            lo += K
+            check(torch.equal(g, want_g), f"sharded grouping {what} K={K}: neighbourhoods differ from the kernels'")
+    report["sharded_grouping"] = "SSG SA1 and MSG SA1 at 24 x 1024 -> 512 equal to the kernels' outputs"
+
+    # a point-sharded forward of the r3 classifier
+    model, _ = load_checkpoint(os.path.join(ROOT, "log", R3_CLASSIFIER, "checkpoints", "best.msgpack"),
+                               build_model("pointnet2_cls_ssg"))
+    model = model.to(device).eval()
+    x = normalize_cloud(pts)
+    with torch.no_grad():
+        want = model(x)[0]
+        with P.point_sharding(mesh) as ctx:
+            got = model(x)[0]
+    check(ctx.dispatch_count == 2, f"point-sharded forward: {ctx.dispatch_count} dispatches, want 2")
+    check(torch.equal(got.argmax(-1), want.argmax(-1)), "point-sharded forward: classes differ")
+    err = float((got - want).abs().max())
+    check(err <= SHARDED_FORWARD_TOL, f"point-sharded forward: log-probs {err} from the unsharded forward")
+    report["sharded_forward"] = {"max_abs_diff": err, "dispatch_count": ctx.dispatch_count}
+
+    # one TP step of rotation against the single step
+    mesh = P.make_mesh({"data": 1, "model": world})
+    cfg, model, batch, draws = step_inputs(device, "rotation", "pose/r3_rotation", 32)
+    spec = get_model_spec("rotation")
+    single = copy.deepcopy(model).to(device)
+    want = make_train_step(spec, cfg)(single, make_optimizer(cfg, single.parameters())[0], batch, draws=draws)
+    tp = copy.deepcopy(model).to(device)
+    index = P.tensor_parallel_shardings(tp, mesh)
+    sharded, total = P.count_sharded(tp, mesh)
+    P.shard_state_tp(tp, mesh)
+    step = P.make_parallel_train_step(spec, cfg, mesh, tp_axis="model", model=tp)
+    got = step(tp, make_optimizer(cfg, tp.parameters())[0], batch, draws=draws)
+    torch.cuda.synchronize()
+    check(abs(float(got["loss"]) - float(want["loss"])) <= TP_LOSS_RTOL * abs(float(want["loss"])),
+          f"TP step: loss {float(got['loss'])} against {float(want['loss'])}")
+    worst = 0.0
+    want_state = single.state_dict()
+    for k, v in tp.state_dict().items():
+        if k.endswith(("running_mean", "running_var")):
+            w = want_state[k][index[k]]
+            worst = max(worst, float((v - w).abs().max()))
+            check(torch.allclose(v, w, rtol=TP_STATS_RTOL, atol=TP_STATS_ATOL), f"TP step: statistic {k}")
+    report["tp_step"] = {"loss": float(got["loss"]), "single_loss": float(want["loss"]), "stats_max_abs_diff": worst,
+                         "sharded_params": sharded, "params": total}
+    return report
+
+
+PARALLEL_TASKS = {"nccl_world_one": nccl_world_one, "gloo_world_two": gloo_world_two}
+
+
+def parallel_phase(device, pipe, training: dict, kernels: list[dict]) -> dict:
+    """The parallel layer (ROADMAP item 10); see the module docstring."""
+    import shutil
+
+    import torch
+
+    from pointnet_like_pose_estimation_tpu_torch import cli
+    from pointnet_like_pose_estimation_tpu_torch.data import load_dataset
+    from pointnet_like_pose_estimation_tpu_torch.models import build_model
+    from pointnet_like_pose_estimation_tpu_torch.parallel import MultiHeadParallel
+    from pointnet_like_pose_estimation_tpu_torch.train import TrainConfig, evaluate, load_checkpoint
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(PARALLEL_WORK, ignore_errors=True)
+    os.makedirs(PARALLEL_WORK)
+    data_path = os.path.join(ROOT, "build", "chip_smoke_dataset.npz")       # the eval phase's
+    report = {}
+
+    # 1. world size 1 on NCCL, then two ranks on gloo sharing the card
+    t0 = time.perf_counter()
+    (nccl,) = spawn_ranks("nccl_world_one", 1, "nccl")
+    report["nccl_world_one"] = {**nccl, "seconds": time.perf_counter() - t0, "train_phase_single_process": {
+        B: training["throughput"][f"pointnet2_cls_ssg B={B}"]["clouds_per_s"] for B in (24, 256)}}
+    log(f"  NCCL world 1: DP step equals the single step {json.dumps(nccl['step']['max_abs_diff'])}, "
+        f"launches {nccl['step']['launches']}; clouds/s " + json.dumps(
+            {k: round(v["clouds_per_s"], 1) for k, v in nccl["throughput"].items()}))
+    t0 = time.perf_counter()
+    gloo = spawn_ranks("gloo_world_two", 2, "gloo")
+    report["gloo_world_two"] = {"ranks": gloo, "seconds": time.perf_counter() - t0}
+    for r in gloo:
+        log(f"  gloo world 2 rank rows {r['step']['rows']}: DP step equals the single step "
+            f"{json.dumps(r['step']['max_abs_diff'])}, launches {r['step']['launches']}, traffic "
+            f"{json.dumps(r['step']['traffic']['by_op'])}")
+    log(f"  sharded FPS {gloo[0]['sharded_fps']}; {gloo[0]['sharded_grouping']}; point-sharded forward "
+        f"{gloo[0]['sharded_forward']}; TP step {gloo[0]['tp_step']}")
+    launches = {"fps": sum(r["step"]["launches"]["fps"] for r in [nccl, *gloo]),
+                "ball_query": sum(r["step"]["launches"]["ball_query"] for r in [nccl, *gloo])}
+    for k in kernels:
+        k["launches_by_path"]["parallel"] = launches.get(k["name"], 0)
+    report["launches"] = launches
+
+    # 2. torchrun ... cli train --data-parallel: 2 epochs, resumed for a third, then cli eval of best.pt
+    log_dir = os.path.join(PARALLEL_WORK, "train")
+    args = ["--model", "pointnet2_cls_ssg", "--data", data_path, "--batch-size", str(TRAIN_BATCH),
+            "--log-dir", log_dir, "--experiment", "smoke_dp"]
+    t0 = time.perf_counter()
+    for epochs in ("2", "3"):
+        res = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1", "-m",
+             "pointnet_like_pose_estimation_tpu_torch.cli", "train", "--data-parallel", *args, "--epochs", epochs],
+            cwd=ROOT, env={**os.environ, "PYTHONPATH": ROOT}, capture_output=True, text=True, timeout=600)
+        check(res.returncode == 0, f"torchrun train --data-parallel --epochs {epochs}: exit {res.returncode}\n"
+              f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    seconds = time.perf_counter() - t0
+    exp_dir = os.path.join(log_dir, "classification", "smoke_dp")
+    with open(os.path.join(exp_dir, "history.json")) as f:
+        history = json.load(f)
+    check([r["epoch"] for r in history] == [0, 1, 2], f"torchrun train: history epochs {history}")
+    losses = [r["train_loss"] for r in history]
+    check(all(np.isfinite(losses)), f"torchrun train: non-finite loss {losses}")
+    cfg = TrainConfig.for_model("pointnet2_cls_ssg", batch_size=TRAIN_BATCH, log_dir=log_dir, experiment="smoke_dp")
+    model, meta = load_checkpoint(os.path.join(exp_dir, "checkpoints", "best.pt"), build_model("pointnet2_cls_ssg"))
+    want = evaluate(cfg, model, load_dataset(data_path, "test"))
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        cli.main(["eval", *args])
+    from_cli = json.loads(printed.getvalue().strip().splitlines()[-1])
+    check(from_cli.pop("checkpoint_epoch") == meta["epoch"], "torchrun train: eval of best.pt, epoch")
+    check(set(from_cli) == set(want) and all(np.allclose(from_cli[k], want[k], rtol=1e-6, atol=1e-6) for k in want),
+          f"torchrun train: the eval command printed {from_cli}, evaluate gave {want}")
+    report["torchrun_train"] = {"train_loss_by_epoch": losses, "best_epoch": meta["epoch"],
+                                "seconds_for_two_calls": seconds, "seconds_per_epoch": [r["seconds"] for r in history],
+                                "test_instance_acc": want["instance_acc"]}
+    log(f"  torchrun --nproc-per-node 1 cli train --data-parallel: 2 epochs, resumed for a third, in "
+        f"{seconds:.1f} s; train loss {losses}; eval of best.pt (epoch {meta['epoch']}) equals evaluate")
+
+    # 3. the head fan-out on the r3 checkpoints against infer_clusters
+    mhp = MultiHeadParallel(pipe.models)                                   # default: every visible card
+    check(all(d.type == "cuda" for d in mhp.placement.values()), "MultiHeadParallel: not on the card")
+    report["multihead"] = {"placement": {k: str(v) for k, v in mhp.placement.items()}}
+    for K in (4, 32):
+        clusters = blobs(np.random.default_rng(40 + K), K, pipe.cfg.num_points)
+        got, want = mhp(clusters), pipe.infer_clusters(clusters)
+        check(set(got) == set(want) and np.array_equal(got["pred_class"], want["pred_class"]),
+              f"MultiHeadParallel K={K}: keys or classes differ from infer_clusters")
+        err = max(float(np.abs(got[k] - want[k]).max()) for k in got)
+        check(err <= TOL, f"MultiHeadParallel K={K}: {err} from infer_clusters")
+        report["multihead"][f"K={K}"] = {"max_abs_diff": err, "fan_out": timed(lambda: mhp(clusters), 10),
+                                         "infer_clusters": timed(lambda: pipe.infer_clusters(clusters), 10)}
+        log(f"  MultiHeadParallel K={K}: equals infer_clusters ({err}); "
+            f"{report['multihead'][f'K={K}']['fan_out']['median_ms']:.3f} ms against "
+            f"{report['multihead'][f'K={K}']['infer_clusters']['median_ms']:.3f}")
+    torch.cuda.synchronize()
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"  parallel phase: {report['seconds']:.1f} s")
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -2011,11 +2409,15 @@ def main() -> int:
     log("data phase")
     data = data_phase(device, pipe, kernels)
 
+    log("parallel phase")
+    parallel = parallel_phase(device, pipe, training, kernels)
+
     check(not STEP_FAILURES, "train steps: " + " | ".join(STEP_FAILURES))
     log(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     log(card)
     print(json.dumps({"kernels": kernels, "latency": latency, "eval": evals, "train": training,
-                      "bf16": bf16, "frame": frames, "data": data, "card": card}), flush=True)
+                      "bf16": bf16, "frame": frames, "data": data, "parallel": parallel, "card": card}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

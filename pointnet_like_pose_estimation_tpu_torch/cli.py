@@ -9,12 +9,17 @@ package's ``cli.py``).
   python -m pointnet_like_pose_estimation_tpu_torch.cli sweep --epochs 10
 
 All run on the card; ``--device cpu`` asks for the CPU. Without a card and
-without that option they raise. ``train`` takes the JAX command's flags but
-``--data-parallel`` and writes ``best.pt`` and ``latest.pt`` under
+without that option they raise. ``train`` takes the JAX command's flags and
+writes ``best.pt`` and ``latest.pt`` under
 ``<log-dir>/<task>/<experiment>/checkpoints``; ``eval`` reads ``best.pt``
 there, or the JAX package's ``best.msgpack`` where the experiment has no
-``best.pt``. ``train`` and ``eval`` compute in ``--dtype`` (float32 or
-bfloat16, BatchNorm in float32 either way). ``infer`` serves raw clouds
+``best.pt``. ``train --data-parallel`` trains over the ranks that
+``torchrun`` starts, one card each:
+
+  torchrun --nproc-per-node 4 -m pointnet_like_pose_estimation_tpu_torch.cli train --data-parallel ...
+
+``train`` and ``eval`` compute in ``--dtype`` (float32 or bfloat16,
+BatchNorm in float32 either way). ``infer`` serves raw clouds
 (``.ply`` or comma-separated text; several stream through
 ``GraspPipeline.stream``) with ``--config``, JSON overrides of
 ``PipelineConfig`` (``dtype`` among them), and ``--checkpoints``, JSON of
@@ -54,6 +59,8 @@ def _add_train_args(p):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--no-augment", action="store_true")
     p.add_argument("--compat-pm1-bce", action="store_true")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="data-parallel over the ranks torchrun starts (a world of one without it)")
 
 
 def _cfg_from_args(args):
@@ -75,6 +82,7 @@ def _cfg_from_args(args):
             seed=args.seed,
             augment=not args.no_augment,
             compat_pm1_bce=args.compat_pm1_bce,
+            data_parallel=args.data_parallel,
         )
         if args.learning_rate is not None:
             kw["learning_rate"] = args.learning_rate
@@ -89,12 +97,18 @@ def cmd_generate(args):
 
 
 def cmd_train(args):
+    import torch.distributed as dist
+
     from pointnet_like_pose_estimation_tpu_torch.data import load_dataset
     from pointnet_like_pose_estimation_tpu_torch.train import train
 
     cfg = _cfg_from_args(args)
-    _, history = train(cfg, load_dataset(args.data, "train"), load_dataset(args.data, "test"),
-                       device=args.device)
+    try:
+        _, history = train(cfg, load_dataset(args.data, "train"), load_dataset(args.data, "test"),
+                           device=args.device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     print(json.dumps(history[-1] if history else {}))
 
 

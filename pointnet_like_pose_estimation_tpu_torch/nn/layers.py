@@ -23,6 +23,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from pointnet_like_pose_estimation_tpu_torch.nn.bn_context import bn_group
+
 # TrainConfig.dtype / PipelineConfig.dtype -> the Linear layers' compute dtype
 COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
@@ -60,6 +62,19 @@ def set_compute_dtype(model: nn.Module, dtype: str) -> nn.Module:
     return model
 
 
+def _synced_var_mean(x: torch.Tensor, group) -> tuple[torch.Tensor, torch.Tensor]:
+    """Biased variance and mean of ``[rows, C]`` over the rows of every rank
+    of ``group``, in two passes, each one differentiable all-reduce."""
+    from pointnet_like_pose_estimation_tpu_torch.parallel import collectives
+
+    total = collectives.all_reduce(torch.cat([x.sum(dim=0), x.new_full((1,), x.shape[0])]), group, "batch_norm")
+    rows = total[-1]
+    mean = total[:-1] / rows
+    dev = x - mean
+    var = collectives.all_reduce((dev * dev).sum(dim=0), group, "batch_norm") / rows
+    return var, mean
+
+
 class BatchNormF32(nn.BatchNorm1d):
     """BatchNorm over every non-channel axis of ``[..., C]``, in at least
     float32 (a float64 input stays float64), as flax's ``BatchNorm``
@@ -78,6 +93,11 @@ class BatchNormF32(nn.BatchNorm1d):
     spread is small beside its mean: with the one-pass form, reordering the
     batch of a float32 train step of ``sign_msg`` (batch 24) moved its
     gradients by up to 2.6e-4, with the two-pass form by 6e-6.
+
+    Under ``bn_sync(group)`` (``nn/bn_context.py``) the statistics are
+    those of every row of the group's ranks, in the same two passes: one
+    all-reduce of the row count and the sum gives the mean, a second of the
+    squared deviations from it the biased variance. Both carry gradients.
     """
 
     def __init__(self, num_features: int):
@@ -88,7 +108,11 @@ class BatchNormF32(nn.BatchNorm1d):
         x = x.to(torch.promote_types(x.dtype, torch.float32)).reshape(-1, shape[-1])
         if not self.training:
             return super().forward(x).reshape(shape)
-        var, mean = torch.var_mean(x, dim=0, unbiased=False)
+        group = bn_group()
+        if group is None:
+            var, mean = torch.var_mean(x, dim=0, unbiased=False)
+        else:
+            var, mean = _synced_var_mean(x, group)
         with torch.no_grad():
             self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
             self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)

@@ -53,7 +53,10 @@ class SetAbstractionMSG(nn.Module):
     by every radius, then a shared MLP and a max per scale, concatenated.
 
     ``in_channels`` counts the grouped channels: the input features plus 3
-    coordinates. The point-sharded branch of the JAX layer is not ported.
+    coordinates. Under ``parallel.point_sharding`` the grouping of every
+    scale runs over the sharded point axis
+    (``parallel.sharded_ops.sharded_sample_and_group_multi``) where the
+    context takes N.
     """
 
     def __init__(self, num_centroids: int, num_neighbors_list: Sequence[int],
@@ -69,15 +72,30 @@ class SetAbstractionMSG(nn.Module):
     def forward(self, points: torch.Tensor, features: torch.Tensor | None):
         """points ``[B, N, 3]``, features ``[B, N, D]`` or None ->
         (centroids ``[B, S, 3]``, features ``[B, S, sum of last widths]``)."""
+        from pointnet_like_pose_estimation_tpu_torch.parallel import context, sharded_ops
+
+        ctx = context.current_point_sharding()
+        if ctx is not None and ctx.dispatches(points.shape[1]):
+            ctx.dispatch_count += 1
+            centroids, grouped_list = sharded_ops.sharded_sample_and_group_multi(
+                points, features, self.num_centroids, self.radius_list, self.num_neighbors_list,
+                ctx.mesh, axis=ctx.axis, batch_axis=ctx.batch_axis)
+        else:
+            centroids, grouped_list = self._group(points, features)
+        outs = [getattr(self, f"mlp_{i}")(grouped).amax(dim=-2) for i, grouped in enumerate(grouped_list)]
+        return centroids, torch.cat(outs, dim=-1)
+
+    def _group(self, points: torch.Tensor, features: torch.Tensor | None):
+        """One FPS and one multi-scale ball query: the centroids and each
+        scale's grouped ``[features, centered coords]`` (the reference's order)."""
         centroids = index_points(points, farthest_point_sample(points, self.num_centroids))
         idx_all = ball_query_multi(points, centroids, self.radius_list, self.num_neighbors_list)
-        outs, k_off = [], 0
-        for i, K in enumerate(self.num_neighbors_list):
+        grouped_list, k_off = [], 0
+        for K in self.num_neighbors_list:
             idx = idx_all[..., k_off:k_off + K]
             k_off += K
             grouped = index_points(points, idx) - centroids[:, :, None, :]
             if features is not None:
-                # the reference's order: [features, centered coords]
                 grouped = torch.cat([index_points(features, idx), grouped], dim=-1)
-            outs.append(getattr(self, f"mlp_{i}")(grouped).amax(dim=-2))
-        return centroids, torch.cat(outs, dim=-1)
+            grouped_list.append(grouped)
+        return centroids, grouped_list

@@ -38,7 +38,19 @@ def sample_and_group(
 
     Returns ``(centroids [B, S, P], grouped [B, S, K, P (+D)])``, the
     centered coordinates first and the grouped features after them.
+
+    Under ``parallel.point_sharding`` (and without ``fps_idx`` and
+    ``return_fps``) the grouping runs over the sharded point axis
+    (``parallel.sharded_ops.sharded_sample_and_group``) where the context
+    takes N.
     """
+    from pointnet_like_pose_estimation_tpu_torch.parallel import context, sharded_ops
+
+    ctx = context.current_point_sharding()
+    if ctx is not None and fps_idx is None and not return_fps and ctx.dispatches(points.shape[1]):
+        ctx.dispatch_count += 1
+        return sharded_ops.sharded_sample_and_group(points, features, num_centroids, num_neighbors, radius,
+                                                    ctx.mesh, axis=ctx.axis, batch_axis=ctx.batch_axis)
     if fps_idx is None:
         fps_idx = farthest_point_sample(points, num_centroids)
     centroids = index_points(points, fps_idx)

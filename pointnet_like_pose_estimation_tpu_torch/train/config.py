@@ -4,7 +4,8 @@ reads into both).
 
 ``dtype`` is the compute dtype of the Linear layers, ``"float32"`` or
 ``"bfloat16"``; parameters, optimizer state and BatchNorm stay float32.
-``data_parallel`` and ``multihost`` raise (``parallel/`` is not ported).
+``data_parallel`` trains over every rank of the process group (``train``),
+which ``multihost`` forms from the ``torchrun`` environment.
 ``epoch_chunk`` has no effect in the port: it bounds the time of one TPU
 dispatch in the JAX package, and the port launches its steps eagerly.
 ``device_data`` keeps the train split on the device (one upload, batches

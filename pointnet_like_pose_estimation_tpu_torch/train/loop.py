@@ -36,6 +36,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from pointnet_like_pose_estimation_tpu_torch.data.dataset import PoseDataset, iter_batches
@@ -264,13 +265,6 @@ class PreemptionGuard:
         return False
 
 
-def _check_supported(cfg: TrainConfig) -> None:
-    if cfg.data_parallel or cfg.multihost:
-        raise NotImplementedError(
-            "train: data-parallel and multi-host training are not ported yet "
-            "(ROADMAP.md Queue 1 item 10, parallel/)")
-
-
 def _persist_history(hist_path: str, history: list[dict]) -> None:
     """Merge this run's rows into ``history.json`` by epoch (this run wins),
     written through a ``.tmp`` and ``os.replace``."""
@@ -302,13 +296,46 @@ def train(cfg: TrainConfig, train_ds: PoseDataset, test_ds: PoseDataset | None =
     host, shuffled by a numpy generator seeded with ``cfg.seed``, as the
     JAX package's per-step path. Either way a step leaves its loss and
     metric on the device and the host reads them once per epoch.
+
+    ``cfg.multihost`` joins the process group of the ``torchrun``
+    environment (``env://``), the counterpart of
+    ``jax.distributed.initialize``; ``cfg.data_parallel`` trains with
+    ``parallel.make_parallel_train_step`` over all of its ranks (a world of
+    one outside ``torchrun``), each rank on ``cuda:{LOCAL_RANK}``, its rows
+    of batches that every rank draws alike on the host (the per-step path,
+    as in the JAX package). Rank 0 alone writes ``config.json``, the log,
+    the history and the checkpoints, and the other ranks wait for it at a
+    barrier; every rank reads ``latest.pt`` to resume and evaluates the
+    test split. A preemption signal is honoured at an epoch's end there,
+    when the ranks agree on it, so that all of them stop after the same
+    step.
     """
-    _check_supported(cfg)
+    # parallel/ imports train/, so it is imported here, when train() runs
+    from pointnet_like_pose_estimation_tpu_torch.parallel import (
+        axis_size,
+        collectives,
+        init_process_group,
+        make_mesh,
+        make_parallel_train_step,
+        replicate,
+        shard_batch,
+    )
+
+    mesh = None
+    if cfg.multihost or cfg.data_parallel:
+        device = init_process_group(device, multihost=cfg.multihost)
     device = resolve_device(device, "train")
+    rank = dist.get_rank() if dist.is_initialized() else 0
     spec, state = build_state(cfg, device)
     steps_per_epoch = len(train_ds) // cfg.batch_size
-    use_device_data = cfg.device_data and steps_per_epoch > 0
-    if use_device_data:
+    use_device_data = cfg.device_data and steps_per_epoch > 0 and not cfg.data_parallel
+    if cfg.data_parallel:
+        mesh = make_mesh(device_type=device.type)
+        if cfg.batch_size % axis_size(mesh, "data"):
+            raise ValueError(f"batch_size {cfg.batch_size} not divisible by data axis {axis_size(mesh, 'data')}")
+        replicate(state.model, mesh)
+        train_step = make_parallel_train_step(spec, cfg, mesh)
+    elif use_device_data:
         run_epoch = make_epoch_runner(spec, cfg, steps_per_epoch)
         dev_train = _device_data(train_ds, device)
     else:
@@ -319,12 +346,15 @@ def train(cfg: TrainConfig, train_ds: PoseDataset, test_ds: PoseDataset | None =
     ckpt = _ckpt_dir(cfg)
     exp_dir = os.path.dirname(ckpt)
     logs_dir = os.path.join(exp_dir, "logs")
-    os.makedirs(logs_dir, exist_ok=True)
-    with open(os.path.join(exp_dir, "config.json"), "w") as f:
-        json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
-    fh = logging.FileHandler(os.path.join(logs_dir, f"{cfg.model}.log"))
-    fh.setFormatter(logging.Formatter("%(asctime)s %(message)s"))
-    log.addHandler(fh)
+    fh = None
+    if rank == 0:
+        os.makedirs(logs_dir, exist_ok=True)
+        with open(os.path.join(exp_dir, "config.json"), "w") as f:
+            json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
+        fh = logging.FileHandler(os.path.join(logs_dir, f"{cfg.model}.log"))
+        fh.setFormatter(logging.Formatter("%(asctime)s %(message)s"))
+        log.addHandler(fh)
+    _barrier()
 
     start_epoch, best_metric = 0, None
     latest, best = os.path.join(ckpt, "latest.pt"), os.path.join(ckpt, "best.pt")
@@ -340,7 +370,7 @@ def train(cfg: TrainConfig, train_ds: PoseDataset, test_ds: PoseDataset | None =
     history = []
     rng = np.random.default_rng(cfg.seed)
     guard = PreemptionGuard()
-    stop = lambda: guard.preempted  # noqa: E731
+    stop = (lambda: False) if mesh is not None else (lambda: guard.preempted)  # noqa: E731
     guard.__enter__()
     try:
         for epoch in range(start_epoch, cfg.epochs):
@@ -352,15 +382,23 @@ def train(cfg: TrainConfig, train_ds: PoseDataset, test_ds: PoseDataset | None =
                 for raw in iter_batches(train_ds, cfg.batch_size, rng=rng):
                     if stop():
                         break
+                    if mesh is not None:
+                        raw = shard_batch(raw, mesh)
                     batch = {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in raw.items()}
                     batch["labels"] = batch["labels"].long()
                     out = train_step(state.model, state.optimizer, batch, state.generator)
                     sums += torch.stack([out["loss"], out["metric"]])
                     n += 1
+            if mesh is not None:            # the ranks agree on a signal any of them had
+                flag = torch.tensor([float(guard.preempted)], device=device)
+                guard.preempted = bool(collectives.all_reduce_(flag, mesh.get_group("data"), "stop",
+                                                               dist.ReduceOp.MAX).item())
             if guard.preempted and n < steps_per_epoch:
                 # a partial epoch: saved under the previous epoch, so that a
                 # resumed run repeats this one whole
-                save_checkpoint(latest, state, epoch - 1, 0.0)
+                if rank == 0:
+                    save_checkpoint(latest, state, epoch - 1, 0.0)
+                _barrier()
                 log.warning("preempted during epoch %d; latest saved, exiting", epoch)
                 break
             loss_sum, metric_sum = sums.cpu().tolist()               # the one copy of the epoch
@@ -376,18 +414,28 @@ def train(cfg: TrainConfig, train_ds: PoseDataset, test_ds: PoseDataset | None =
                 cur = row[key]
                 if best_metric is None or (cur > best_metric if higher else cur < best_metric):
                     best_metric = cur
-                    save_checkpoint(best, state, epoch, cur)
+                    if rank == 0:
+                        save_checkpoint(best, state, epoch, cur)
             # a preempted run always saves the epoch it finished
-            if (epoch + 1) % cfg.ckpt_every == 0 or epoch == cfg.epochs - 1 or guard.preempted:
+            if rank == 0 and ((epoch + 1) % cfg.ckpt_every == 0 or epoch == cfg.epochs - 1 or guard.preempted):
                 save_checkpoint(latest, state, epoch, row["train_loss"])
             history.append(row)
-            _persist_history(hist_path, history)
+            if rank == 0:
+                _persist_history(hist_path, history)
+            _barrier()
             log.info("%s", row)
             if guard.preempted:
                 log.warning("preempted after epoch %d; exiting cleanly", epoch)
                 break
     finally:
         guard.__exit__()
-        log.removeHandler(fh)
-        fh.close()
+        if fh is not None:
+            log.removeHandler(fh)
+            fh.close()
     return state, history
+
+
+def _barrier() -> None:
+    """Wait for every rank of the default process group, if there is one."""
+    if dist.is_initialized():
+        dist.barrier()

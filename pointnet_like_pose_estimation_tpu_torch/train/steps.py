@@ -83,7 +83,8 @@ def draw_step(cfg: TrainConfig, model: nn.Module, batch: dict, gen: torch.Genera
     }
 
 
-def make_train_step(spec: ModelSpec, cfg: TrainConfig) -> Callable:
+def make_train_step(spec: ModelSpec, cfg: TrainConfig, *,
+                    reduce_grads: Callable[[list[torch.Tensor]], None] | None = None) -> Callable:
     """``train_step(model, optimizer, batch, gen=None, *, draws=None) ->
     {"loss", "metric"}``, both 0-d tensors on the device.
 
@@ -91,8 +92,9 @@ def make_train_step(spec: ModelSpec, cfg: TrainConfig) -> Callable:
     ``draws`` are given, puts the model in train mode (the dropout sites in
     eval mode where ``draws["dropout"]`` is None), runs the forward, the
     loss and the backward, gives every parameter the loss does not reach a
-    zero gradient (so that L2 decay moves it, as in optax), and steps the
-    optimizer. The gradients stay in ``.grad`` after the step.
+    zero gradient (so that L2 decay moves it, as in optax), hands the
+    gradients to ``reduce_grads`` (the data-parallel step's all-reduce) and
+    steps the optimizer. The gradients stay in ``.grad`` after the step.
     """
     loss_kw = _loss_kwargs(spec, cfg)
 
@@ -116,10 +118,12 @@ def make_train_step(spec: ModelSpec, cfg: TrainConfig) -> Callable:
         loss = spec.loss(outputs, target, **loss_kw)
         optimizer.zero_grad(set_to_none=False)
         loss.backward()
-        for group in optimizer.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+        params = [p for group in optimizer.param_groups for p in group["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if reduce_grads is not None:
+            reduce_grads([p.grad for p in params])
         optimizer.step()
         with torch.no_grad():
             metric = spec.metric(outputs, target)

@@ -23,6 +23,12 @@ group (the two CUDA kernels, matrix products, gather and scatter, the
 reductions of BatchNorm and max, the optimizer, other elementwise),
 launches, and the device busy share.
 
+    python3 scripts/profile_torch_serving.py --train-dp pointnet2_cls_ssg [B ...]
+
+profiles, at each batch size, the same train step and then the
+data-parallel step (parallel/train_parallel.py) in a world of one on NCCL,
+its collectives in a group of their own.
+
     python3 scripts/profile_torch_serving.py --latency-against build/parent
 
 times, without the profiler, the request latency (host clock around
@@ -66,7 +72,7 @@ REQUESTS = 5
 
 
 def group(name: str) -> str:
-    if "fps_register_kernel" in name or "fps_shared_kernel" in name:
+    if "fps_register_kernel" in name or "fps_dist_kernel" in name:
         return "fps (CUDA kernel)"
     if "ball_query_kernel" in name:
         return "ball_query (CUDA kernel)"
@@ -86,6 +92,8 @@ def train_group(name: str) -> str:
         return "reductions (BatchNorm statistics, max over groups)"
     if "multi_tensor_apply" in name:
         return "optimizer (foreach Adam)"
+    if "nccl" in name.lower():
+        return "collectives (NCCL)"
     return "other elementwise"
 
 
@@ -168,35 +176,46 @@ def latency() -> None:
     print(json.dumps(report), flush=True)
 
 
-def train_profile(name: str, batch_sizes: list[int]) -> None:
-    """Train steps of ``name`` under torch.profiler at each batch size."""
+def train_profile(name: str, batch_sizes: list[int], data_parallel: bool = False) -> None:
+    """Train steps of ``name`` under torch.profiler at each batch size; with
+    ``data_parallel``, each followed by the DP step in a world of one."""
+    from pointnet_like_pose_estimation_tpu_torch import parallel
     from pointnet_like_pose_estimation_tpu_torch.data import build_dataset, load_dataset
     from pointnet_like_pose_estimation_tpu_torch.train import TrainConfig, build_state, make_train_step
     from pointnet_like_pose_estimation_tpu_torch.train.loop import _device_data
 
     data = _device_data(load_dataset(build_dataset(80, seed=0), "train"), torch.device("cuda"))
     n = data["labels"].shape[0]
+    steps = {"train step": make_train_step}
+    if data_parallel:
+        parallel.init_process_group("cuda")
+        mesh = parallel.make_mesh()
+        steps["DP step (NCCL, world 1)"] = lambda spec, cfg: parallel.make_parallel_train_step(spec, cfg, mesh)
     report = {}
     for B in batch_sizes:
-        cfg = TrainConfig.for_model(name, batch_size=B)
-        spec, state = build_state(cfg)
-        step = make_train_step(spec, cfg)
+        for kind, make_step in steps.items():
+            cfg = TrainConfig.for_model(name, batch_size=B)
+            spec, state = build_state(cfg)
+            step = make_step(spec, cfg)
 
-        def one():
-            idx = torch.randint(0, n, (B,), generator=state.generator, device="cuda")
-            step(state.model, state.optimizer, {k: v[idx] for k, v in data.items()}, state.generator)
+            def one():
+                idx = torch.randint(0, n, (B,), generator=state.generator, device="cuda")
+                step(state.model, state.optimizer, {k: v[idx] for k, v in data.items()}, state.generator)
 
-        key = f"train step {name} B={B}"
-        report[key] = profiled(one, REQUESTS, train_group)
-        print(json.dumps({key: report[key]}, indent=1), flush=True)
+            key = f"{kind} {name} B={B}"
+            report[key] = profiled(one, REQUESTS, train_group)
+            print(json.dumps({key: report[key]}, indent=1), flush=True)
+    if data_parallel:
+        torch.distributed.destroy_process_group()
     print(json.dumps({"card": card_line(), "profile": report}))
 
 
 def main():
     if not torch.cuda.is_available():
         sys.exit("profile_torch_serving: no CUDA device")
-    if sys.argv[1:2] == ["--train"]:
-        return train_profile(sys.argv[2], [int(b) for b in sys.argv[3:]] or [24, 256])
+    if sys.argv[1:2] in (["--train"], ["--train-dp"]):
+        return train_profile(sys.argv[2], [int(b) for b in sys.argv[3:]] or [24, 256],
+                             data_parallel=sys.argv[1] == "--train-dp")
     if sys.argv[1:2] == ["--latency-against"]:
         me = [sys.executable, os.path.abspath(__file__), "--root"]
         sys.exit(max(subprocess.run([*me, root]).returncode

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card against their plain versions, and
-the serving path and the fused-SA executors on the card against the same
-code on the CPU. Skipped
+the serving path, the fused-SA executors and the train step on the card
+against the same code on the CPU, and a data-parallel step at world size 1
+against the single step. Skipped
 where there is no card. The machine with the card has no JAX, which
 tests/conftest.py imports, so run them there with
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py``."""
@@ -370,6 +371,71 @@ def test_train_step_on_card_matches_cpu(card, name, launches):
     for k, v in cpu_model.state_dict().items():
         if k.endswith(("running_mean", "running_var")):
             torch.testing.assert_close(card_state[k].cpu(), v, **tol, msg=k)
+
+
+def test_dp_step_at_world_size_one_matches_the_single_step(card):
+    """A world of one on NCCL (``parallel.init_process_group`` outside
+    ``torchrun``): one data-parallel train step of pointnet2_cls_ssg from the
+    committed r3 checkpoint at batch 24 against the single-process step on
+    the card, on the same draws: loss, gradients (absolute 1e-4 scaled by
+    the largest gradient) and BatchNorm statistics within 1e-4, FPS and the
+    ball query launched twice, and the gradients all-reduced once, 4 bytes a
+    parameter."""
+    import copy
+
+    import torch.distributed as dist
+
+    from pointnet_like_pose_estimation_tpu_torch import parallel as P
+    from pointnet_like_pose_estimation_tpu_torch.data import build_dataset, load_dataset
+    from pointnet_like_pose_estimation_tpu_torch.models import build_model, get_model_spec
+    from pointnet_like_pose_estimation_tpu_torch.train import (
+        TrainConfig,
+        draw_step,
+        load_checkpoint,
+        make_optimizer,
+        make_train_step,
+    )
+    from pointnet_like_pose_estimation_tpu_torch.train.loop import _device_data
+    from pointnet_like_pose_estimation_tpu_torch.utils.collectives import (
+        collective_traffic,
+        reset_collective_traffic,
+    )
+
+    name = "pointnet2_cls_ssg"
+    ds = load_dataset(build_dataset(5, seed=3), "train")
+    batch = {k: v[:24].to(card) for k, v in _device_data(ds, torch.device("cpu")).items()}
+    spec, cfg = get_model_spec(name), TrainConfig.for_model(name)
+    model, _ = load_checkpoint(
+        os.path.join(ROOT, "log/classification/r3_pointnet2_cls_ssg/checkpoints/best.msgpack"), build_model(name))
+    draws = draw_step(cfg, model, {k: v.cpu() for k, v in batch.items()}, torch.Generator().manual_seed(5))
+    draws = {part: {k: v.to(card) for k, v in d.items()} for part, d in draws.items()}
+    single = copy.deepcopy(model).to(card)
+    want = make_train_step(spec, cfg)(single, make_optimizer(cfg, single.parameters())[0], batch, draws=draws)
+    P.init_process_group("cuda")
+    try:
+        mesh = P.make_mesh()
+        dp = P.replicate(copy.deepcopy(model).to(card), mesh)
+        step = P.make_parallel_train_step(spec, cfg, mesh)
+        reset_collective_traffic()
+        f0, b0 = fps.launches, ball_query_multi.launches
+        got = step(dp, make_optimizer(cfg, dp.parameters())[0], batch, draws=draws)
+        torch.cuda.synchronize()
+        assert (fps.launches - f0, ball_query_multi.launches - b0) == (2, 2)
+        traffic = collective_traffic()
+    finally:
+        dist.destroy_process_group()
+    assert traffic["by_site"]["gradients"]["all-reduce"] == {
+        "count": 1, "bytes": 4 * sum(p.numel() for p in model.parameters())}
+    tol = dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got["loss"], want["loss"], **tol)
+    want_params = dict(single.named_parameters())
+    scale = max(1.0, max(float(p.grad.abs().max()) for p in want_params.values()))
+    for k, p in dp.named_parameters():
+        torch.testing.assert_close(p.grad, want_params[k].grad, rtol=1e-4, atol=1e-4 * scale, msg=k)
+    want_state = single.state_dict()
+    for k, v in dp.state_dict().items():
+        if k.endswith(("running_mean", "running_var")):
+            torch.testing.assert_close(v, want_state[k], **tol, msg=k)
 
 
 def test_frame_on_card_matches_cpu(card):

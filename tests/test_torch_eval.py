@@ -103,17 +103,17 @@ def test_eval_step_matches_jax(test_split, name):
 
 def test_training_inputs_are_not_ported_and_say_so(test_split):
     """The train branch of ``_prepare_inputs`` is ported and asks for the
-    step's draws; what of training is still not ported (data-parallel)
-    raises and says so, and a compute dtype other than float32 and
-    bfloat16 raises."""
+    step's draws; a multi-host run that cannot form its process group (no
+    ``torchrun`` environment) raises, and a compute dtype other than
+    float32 and bfloat16 raises."""
     from pointnet_like_pose_estimation_tpu_torch.train import train
 
     batch = {"points": torch.zeros(2, 8, 3), "labels": torch.zeros(2, dtype=torch.long)}
     with pytest.raises(ValueError, match="needs its draws"):
         _prepare_inputs(get_model_spec("pointnet_cls"), TrainConfig(), batch, train=True)
     ds = PoseDataset(**dataclasses.asdict(test_split))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        train(TrainConfig(data_parallel=True), ds, device="cpu")
+    with pytest.raises(ValueError, match="expected, but not set"):
+        train(TrainConfig(data_parallel=True, multihost=True), ds, device="cpu")
     with pytest.raises(ValueError, match="unknown compute dtype"):
         train(TrainConfig(dtype="float16"), ds, device="cpu")
 

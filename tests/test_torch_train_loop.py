@@ -222,13 +222,15 @@ def test_dead_tnet_updates_its_statistics_and_decays_in_train_mode():
 
 def test_what_is_not_ported_raises_and_the_device_rule(tiny_ds, tiny_fields, tmp_path):
     train_ds, test_ds = tiny_ds
-    for kw, item in ((dict(data_parallel=True), "item 10"), (dict(multihost=True), "item 10")):
-        with pytest.raises(NotImplementedError, match=item):
+    # a run that cannot form its process group (no torchrun environment) raises
+    for kw in (dict(multihost=True), dict(data_parallel=True, multihost=True)):
+        with pytest.raises(ValueError, match="expected, but not set"):
             train(_cfg("pointnet_cls", log_dir=str(tmp_path), **kw), train_ds, device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default runs on it")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        train(_cfg("pointnet_cls", log_dir=str(tmp_path)), train_ds, test_ds)
+    for kw in ({}, dict(data_parallel=True)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train(_cfg("pointnet_cls", log_dir=str(tmp_path), **kw), train_ds, test_ds)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         data = tmp_path / "ds.npz"
         np.savez(data, **tiny_fields)
