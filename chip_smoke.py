@@ -8,13 +8,15 @@ Phases, any failure exits non-zero:
 1. the card, as nvidia-smi and torch report it;
 2. build every CUDA kernel from csrc/ (nvcc, sm_90a);
 3. each kernel against its plain PyTorch version on the card, on seeded
-   clouds, with exact integer equality: FPS on its register path and, with
-   N = 5000, C = 6 and C = 10, on its shared-memory path; the ball query at
+   clouds, with exact integer equality: FPS on its register path at C = 3
+   and C = 10, on its cluster path for 4 clouds of 5000 points and on its
+   shared-memory path for 12 of them and at C = 6; the ball query at
    3, 7 and 10 channels, one to five scales, N and S off the tile sizes, a
    cloud too large for shared memory and empty balls. Then its time at the
    shapes one request of 32 clusters of 2048 points gives it, for the ball
    query also at the MSG levels and at the 10 spliced channels of a pose
-   head, for FPS also in microseconds per step. A kernel's time is the
+   head, for FPS also in microseconds per step beside the path fps_plan
+   picks (the head's C = 10 calls must take a register path). A kernel's time is the
    device time of a call (launches captured in a CUDA graph and replayed
    between two events), beside its bound; for the ball query the time of a
    call launched from Python in a loop stands beside it;
@@ -99,9 +101,11 @@ Phases, any failure exits non-zero:
    with the frames lost beside it, against the 33 ms budget.
 
 11. the data phase (ROADMAP items 6 and 11): FPS past the shared path's
-   57,856 points on the kernel's global path (distances in device memory)
-   against its plain version at FPS_GLOBAL_SHAPES, indices equal, with the
-   time of a call in a CUDA graph and its bound; then, with the launch
+   57,856 points on the kernel's cluster path (one cloud over a
+   thread-block cluster) at FPS_GLOBAL_SHAPES, and on its global path
+   (distances in device memory) one point above the cluster's limit,
+   against its plain version, indices equal, each with the path fps_plan
+   picks and the time of a call in a CUDA graph beside its bound; then, with the launch
    counts set to 0: a frame with an object of 70,000 points served on the
    card against --device cpu (the plane removal alone, classes equal, floats
    within TOL, the clusters kept) and with the radius clean on the card,
@@ -126,7 +130,7 @@ Phases, any failure exits non-zero:
    clouds/s of the DP and the single step at B = 24 and 256, in turns.
    Two ranks on gloo sharing the card: the same step on 12 rows a rank
    against the single step; sharded FPS at 1 x 300,000 -> 512 equal to the
-   FPS kernel's global path, ms a step beside the kernel's; the sharded
+   FPS kernel (its cluster path), ms a step beside the kernel's; the sharded
    groupings at SSG SA1 and MSG SA1 (24 x 1024 -> 512) equal to the
    kernels' outputs; a point-sharded forward of the r3 classifier (two
    dispatches, classes equal, log-probs within SHARDED_FORWARD_TOL); one TP
@@ -307,6 +311,15 @@ def cuda_graph_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def fps_path(N, C, B) -> str:
+    """The name of the FPS kernel's path that ``fps_plan`` picks."""
+    from pointnet_like_pose_estimation_tpu_torch.kernels import fps as F
+
+    code = F.fps_plan(N, C, B)[1]
+    return {F.SHARED_PATH: "shared", F.CLUSTER_PATH: "cluster", F.GLOBAL_PATH: "global"}.get(
+        code, f"register C={C}")
+
+
 def fps_bound_ms(B, N, C, S):
     nbytes = 4 * (B * N * C + B + B * S)
     ops = B * S * N * (3 * C + 1)                 # sub, mul, add per channel; min
@@ -446,16 +459,19 @@ def kernel_phase(device) -> list[dict]:
         check(diff == 0, f"{name} {what}: kernel differs from its plain version (max {diff})")
         log(f"  {name} {what}: exact")
 
-    # the last two take the kernel's shared-memory path (N above the register path, C != 3)
+    # the register path at C = 3 and 10, the cluster path for few clouds above it, the shared
+    # path for many clouds above it and at C = 6
     for B, N, C, S, start in [(8, 1024, 3, 512, 0), (8, 512, 3, 128, 0), (8, 2048, 3, 1024, 0),
                               (8, 4096, 3, 1024, "per-cloud"), (4, 5000, 3, 512, "per-cloud"),
-                              (4, 1000, 6, 256, 0), (4, 1024, 10, 512, 0), (8, 512, 10, 128, 0)]:
+                              (12, 5000, 3, 512, "per-cloud"), (4, 1000, 6, 256, 0),
+                              (4, 1024, 10, 512, 0), (8, 512, 10, 128, 0), (4, 2048, 10, 1024, 0)]:
         pts = torch.from_numpy(np.concatenate(
             [unit_clouds(rng, B, N), rng.standard_normal((B, N, C - 3)).astype(np.float32)], -1)
         ).to(device)
         st = torch.from_numpy(rng.integers(1, N, B).astype(np.int32)).to(device) if start else 0
         same("fps", fps(pts, S, st), fps_reference(pts, S, st),
-             f"B={B} N={N} C={C} S={S} start={'per-cloud' if start else 0} plan={fps_plan(N, C)}")
+             f"B={B} N={N} C={C} S={S} start={'per-cloud' if start else 0} plan={fps_plan(N, C, B)} "
+             f"({fps_path(N, C, B)} path)")
 
     # what, B, N, P, S, radii, ks, empty; the one-hot channels of P = 10 differ per cloud
     cases = [
@@ -492,9 +508,12 @@ def kernel_phase(device) -> list[dict]:
     shapes = []
     for what, pts, S in fps_calls:
         B, N, C = pts.shape
+        if C == 10:
+            check(fps_plan(N, C, B)[1] > 0, f"fps {what}: plan {fps_plan(N, C, B)} is not a register path")
         bound, by = fps_bound_ms(B, N, C, S)
         ms = cuda_graph_ms(lambda: fps(pts, S), 10)
-        shapes.append({"call": what, "shape": [B, N, C, S], "ms": ms,
+        shapes.append({"call": what, "shape": [B, N, C, S], "plan": list(fps_plan(N, C, B)),
+                       "path": fps_path(N, C, B), "ms": ms,
                        "plain_ms": cuda_ms(lambda: fps_reference(pts, S), 1),
                        "bound_ms": bound, "bound_by": by, "us_per_step": 1e3 * ms / S})
     entries.append(("fps", "pointnet_like_pose_estimation_tpu_torch/kernels/csrc/fps.cu",
@@ -523,6 +542,8 @@ def kernel_entry(name, source, replaces, err, shapes, per_request_of) -> dict:
     the calls of one request; ``launches`` is filled in by the path runs."""
     for s in shapes:
         extra = f", {s['us_per_step']:.4f} us/step" if "us_per_step" in s else ""
+        if "path" in s:
+            extra += f", plan {tuple(s['plan'])}: {s['path']} path"
         if "ms_with_host_enqueue" in s:
             extra = f", {s['ms_with_host_enqueue']:.4f} ms a call launched from Python in a loop"
         if "tc_bound_ms" in s:
@@ -1648,8 +1669,12 @@ def frame_phase(device, kernels: list[dict]) -> dict:
     return report
 
 
-# (B, N, C, S) of the FPS calls above what the kernel's shared path holds
+# (B, N, C, S) of the FPS calls above what the kernel's shared path holds: the
+# global path's shapes until the cluster path took them over
 FPS_GLOBAL_SHAPES = ((2, 57_857, 3, 256), (1, 300_000, 3, 512), (2, 70_000, 10, 128))
+# points above the cluster path's limit (kernels/fps.py MAX_CLUSTER_POINTS),
+# which stay on the global path: B and S of that call
+FPS_ABOVE_CLUSTER = (1, 32)
 NEAR_CUBE_POINTS = 70_000
 # the near frame served with the plane removal alone, so that the CPU's
 # side of the comparison does not count all 5e9 pairs of its radius test
@@ -1740,8 +1765,9 @@ def plain_reference_layout(root: str, split: str, num_points: int, rng) -> dict:
 
 def data_phase(device, pipe, kernels: list[dict]) -> dict:
     """What this slice added (ROADMAP items 6 and 11): the FPS kernel's
-    global path against its plain version at FPS_GLOBAL_SHAPES, with its
-    time and bound; then, with the launch counts set to 0, a frame with an
+    cluster path against its plain version at FPS_GLOBAL_SHAPES and its
+    global path one point above the cluster's limit, each with its time in
+    a CUDA graph and its bound; then, with the launch counts set to 0, a frame with an
     object above the old FPS cap served on the card against the CPU; the
     ModelNet loader's uniform resampling on the card against the CPU and a
     training epoch on it; the reference's txt layout written, read back
@@ -1758,7 +1784,7 @@ def data_phase(device, pipe, kernels: list[dict]) -> dict:
     from pointnet_like_pose_estimation_tpu_torch.data.modelnet import ModelNetDataset
     from pointnet_like_pose_estimation_tpu_torch.kernels.ball_group import ball_query_multi
     from pointnet_like_pose_estimation_tpu_torch.kernels.fps import (
-        GLOBAL_PATH,
+        MAX_CLUSTER_POINTS,
         MAX_SHARED_POINTS,
         fps,
         fps_plan,
@@ -1775,31 +1801,38 @@ def data_phase(device, pipe, kernels: list[dict]) -> dict:
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
 
-    # 1. the global path, exact against the plain version, and its time
+    # 1. the cluster path at FPS_GLOBAL_SHAPES and the global path above the cluster's limit, exact
+    # against the plain version, and their times
     rng = np.random.default_rng(21)
-    shapes, err = [], 0
-    for B, N, C, S in FPS_GLOBAL_SHAPES:
+    by_path, err = {"cluster": [], "global": []}, 0
+    large = [(*shape, "cluster") for shape in FPS_GLOBAL_SHAPES]
+    large.append((FPS_ABOVE_CLUSTER[0], MAX_CLUSTER_POINTS + 1, 3, FPS_ABOVE_CLUSTER[1], "global"))
+    for B, N, C, S, name in large:
         pts = torch.from_numpy(np.concatenate(
             [unit_clouds(rng, B, N), rng.standard_normal((B, N, C - 3)).astype(np.float32)], -1)).to(device)
-        check(fps_plan(N, C)[1] == GLOBAL_PATH, f"fps plan {fps_plan(N, C)} for N={N}: not the global path")
+        plan = fps_plan(N, C, B)
+        check(fps_path(N, C, B) == name, f"fps plan {plan} for B={B} N={N}: not the {name} path")
         got = fps(pts, S)
         torch.cuda.synchronize()
         want = fps_reference(pts, S)
         diff = int((got.long() - want.long()).abs().max())
         err = max(err, diff)
-        check(diff == 0, f"fps global path B={B} N={N} C={C} S={S}: differs from the plain version (max {diff})")
+        check(diff == 0, f"fps {name} path B={B} N={N} C={C} S={S}: differs from the plain version (max {diff})")
         bound, by = fps_bound_ms(B, N, C, S)
         ms = cuda_graph_ms(lambda: fps(pts, S), 3)
-        shapes.append({"call": f"global path B={B} N={N} C={C} S={S}", "shape": [B, N, C, S], "ms": ms,
-                       "plain_ms": cuda_ms(lambda: fps_reference(pts, S), 1), "bound_ms": bound,
-                       "bound_by": by, "us_per_step": 1e3 * ms / S})
-        log(f"  fps global path B={B} N={N} C={C} S={S}: exact; kernel {ms:.4f} ms "
-            f"({1e3 * ms / S:.3f} us/step), plain {shapes[-1]['plain_ms']:.4f} ms, bound {bound:.6f} ms ({by})")
+        by_path[name].append({"call": f"{name} path B={B} N={N} C={C} S={S}", "shape": [B, N, C, S],
+                              "plan": list(plan), "path": name, "ms": ms,
+                              "plain_ms": cuda_ms(lambda: fps_reference(pts, S), 1), "bound_ms": bound,
+                              "bound_by": by, "us_per_step": 1e3 * ms / S})
+        log(f"  fps {name} path B={B} N={N} C={C} S={S}, plan {plan}: exact; kernel {ms:.4f} ms "
+            f"({1e3 * ms / S:.3f} us/step), plain {by_path[name][-1]['plain_ms']:.4f} ms, "
+            f"bound {bound:.6f} ms ({by})")
         del pts
     entry = next(k for k in kernels if k["name"] == "fps")
-    entry["global_path_shapes"] = shapes
+    entry["cluster_path_shapes"] = by_path["cluster"]
+    entry["global_path_shapes"] = by_path["global"]
     entry["max_abs_err"] = max(entry["max_abs_err"], err)
-    report["fps_global_path"] = shapes
+    report["fps_large"] = by_path
 
     fps.launches = ball_query_multi.launches = 0
 
@@ -1962,7 +1995,7 @@ def data_phase(device, pipe, kernels: list[dict]) -> dict:
 
 PARALLEL_WORK = os.path.join(ROOT, "build", "chip_smoke_parallel")
 R3_CLASSIFIER = "classification/r3_pointnet2_cls_ssg"
-# sharded FPS against the kernel's global path: B, N, S
+# sharded FPS against the FPS kernel (its cluster path): B, N, S
 SHARDED_FPS = (1, 300_000, 512)
 # the DP step against the single-process step: a train step on the card's
 # float32 arithmetic, summed over the rows in another order (each rank's
@@ -2154,7 +2187,7 @@ def gloo_world_two(rank, world, device) -> dict:
     report = {"step": dp_step_check(device, P.make_mesh(), "DP step, gloo world 2")}
     mesh = P.make_mesh({"points": world})
 
-    # sharded FPS at 300,000 points against the kernel's global path
+    # sharded FPS at 300,000 points against the FPS kernel (its cluster path)
     B, N, S = SHARDED_FPS
     pts = torch.from_numpy(unit_clouds(np.random.default_rng(21), B, N)).to(device)
     want = fps(pts, S)
@@ -2359,7 +2392,7 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s for {', '.join(built)}")
     for b in built.values():
         for line in b.log.splitlines():
-            if "ptxas" in line:
+            if "ptxas" in line or "spill" in line:
                 log(f"  {b.name}: {line.strip()}")
 
     from pointnet_like_pose_estimation_tpu_torch.models.fast_infer import (

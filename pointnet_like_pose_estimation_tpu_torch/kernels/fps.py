@@ -15,35 +15,57 @@ import torch
 
 from pointnet_like_pose_estimation_tpu_torch.kernels import _build
 
-# the shared path keeps one float of running distance per point in shared
-# memory; above it the global path keeps them in a [B, N] scratch tensor
+# the shared path keeps one float of running distance per point in the
+# dynamic shared memory of one block (csrc/fps.cu kMaxSharedBytes); a block
+# of the cluster path does so for its slice, beside an inbox of 2 * 16
+# candidates of 18 words (kMaxSliceBytes)
 MAX_SHARED_POINTS = (227 * 1024 - 1024) // 4
-# the register path: C == 3 and at most 8 points a thread (csrc/fps.cu)
+MAX_SLICE_POINTS = (227 * 1024 - 1024 - 2 * 16 * 18 * 4) // 4
+# the register path: C in REGISTER_CHANNELS (which have cluster-path
+# instances of their own too), at most 8 points a thread and 512 threads
+# (csrc/fps.cu kMaxPointsPerThread, kRegisterThreads)
 MAX_REGISTER_POINTS = 4096
-# points_per_thread codes of the two paths without registers (csrc/fps.cu
-# kSharedPath, kGlobalPath)
-SHARED_PATH, GLOBAL_PATH = 0, -1
+REGISTER_CHANNELS = (3, 10)
+# the cluster path: one cloud over CLUSTER_BLOCKS blocks of 512 threads, or
+# of 1024 where a slice holds more than CLUSTER_SMALL_SLICE points and C has
+# an instance of its own (the any-C instance takes at most 512,
+# kAnyChannelThreads). Below shared memory it also takes clouds of more than
+# MAX_REGISTER_POINTS while all B clusters fit on the card's SMS at once.
+# Above MAX_CLUSTER_POINTS the global path keeps the distances in a [B, N]
+# scratch tensor.
+CLUSTER_BLOCKS, CLUSTER_SMALL_SLICE, SMS = 16, 8192, 132
+MAX_CLUSTER_POINTS = CLUSTER_BLOCKS * MAX_SLICE_POINTS
+# points_per_thread codes of the paths without registers (csrc/fps.cu
+# kSharedPath, kGlobalPath, kClusterPath)
+SHARED_PATH, GLOBAL_PATH, CLUSTER_PATH = 0, -1, -2
 # int32 indices, and a block's stride past the last point, below 2^31
 _MAX_N = 2**31 - 1 - 1024
 
 
-def fps_plan(N: int, C: int = 3) -> tuple[int, int]:
-    """Launch plan ``(threads, points_per_thread)`` for clouds of N >= 1 points.
+def fps_plan(N: int, C: int = 3, B: int = 1) -> tuple[int, int]:
+    """Launch plan ``(threads, points_per_thread)`` for B clouds of N >= 1 points.
 
     ``points_per_thread`` in {1, 2, 4, 8} takes the kernel's register path
-    (coordinates and running distances in registers); ``SHARED_PATH`` its
-    shared path (distances in shared memory), for C != 3 or N above
-    ``MAX_REGISTER_POINTS``; ``GLOBAL_PATH`` its global path (distances in
-    a scratch tensor in device memory), for N above ``MAX_SHARED_POINTS``.
-    Few, full threads keep the one barrier of a step cheap; the table was
-    picked by measurement (``scripts/tune_torch_fps.py``, recorded in
-    PERF.md).
+    (coordinates and running distances in registers), for C in
+    ``REGISTER_CHANNELS`` and N up to ``MAX_REGISTER_POINTS``;
+    ``CLUSTER_PATH`` its cluster path (one cloud over a cluster of
+    ``CLUSTER_BLOCKS`` blocks) above ``MAX_SHARED_POINTS`` up to
+    ``MAX_CLUSTER_POINTS``, and above ``MAX_REGISTER_POINTS`` for as few
+    clouds as fit on the card at once; ``SHARED_PATH`` its shared path
+    (distances in shared memory) for the rest up to ``MAX_SHARED_POINTS``;
+    ``GLOBAL_PATH`` its global path (distances in a scratch tensor in device
+    memory) above ``MAX_CLUSTER_POINTS``. Few, full threads keep the one
+    barrier of a step cheap; the table was picked by measurement
+    (``scripts/tune_torch_fps.py``, recorded in PERF.md).
     """
     if N < 1:
         raise ValueError(f"fps: N={N} outside the clouds FPS takes (N >= 1)")
-    if N > MAX_SHARED_POINTS:
+    if N > MAX_CLUSTER_POINTS:
         return 1024, GLOBAL_PATH
-    if C != 3 or N > MAX_REGISTER_POINTS:
+    if N > MAX_SHARED_POINTS or (N > MAX_REGISTER_POINTS and B * CLUSTER_BLOCKS <= SMS):
+        large = -(-N // CLUSTER_BLOCKS) > CLUSTER_SMALL_SLICE and C in REGISTER_CHANNELS
+        return 1024 if large else 512, CLUSTER_PATH
+    if C not in REGISTER_CHANNELS or N > MAX_REGISTER_POINTS:
         return 1024, SHARED_PATH
     if N <= 128:
         return 32 * ((N + 31) // 32), 1
@@ -110,7 +132,7 @@ def fps(points: torch.Tensor, num_samples: int, start_idx=0) -> torch.Tensor:
         raise ValueError(f"fps: S={num_samples} <= 0 or C={C} outside (0, 16]")
     if N > _MAX_N:
         raise ValueError(f"fps: N={N} above {_MAX_N}: the indices are int32")
-    threads, points_per_thread = fps_plan(N, C)
+    threads, points_per_thread = fps_plan(N, C, B)
     points = points.contiguous()
     start = _start_tensor(start_idx, B, N, points.device)
     out = torch.empty((B, num_samples), dtype=torch.int32, device=points.device)
@@ -118,11 +140,11 @@ def fps(points: torch.Tensor, num_samples: int, start_idx=0) -> torch.Tensor:
     scratch = (torch.empty((B, N), dtype=torch.float32, device=points.device)
                if points_per_thread == GLOBAL_PATH else None)
     lib = _build.library("fps")
-    lib.plpe_fps.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.plpe_fps.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     code = lib.plpe_fps(
         points.data_ptr(), start.data_ptr(), out.data_ptr(),
         None if scratch is None else scratch.data_ptr(), B, N, C, num_samples,
-        threads, points_per_thread,
+        threads, points_per_thread, CLUSTER_BLOCKS,
         torch.cuda.current_stream(points.device).cuda_stream,
     )
     _build.check(lib, code, "fps")

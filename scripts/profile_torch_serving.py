@@ -39,6 +39,12 @@ host clock) with the package of another checkout of the repository (say the
 parent commit unpacked by ``git archive``) and with this one, each in a
 process of its own, in the order other, this, this, other, within one run on
 one card. The checkpoints are this checkout's in every turn.
+
+    python3 scripts/profile_torch_serving.py --profile-against build/parent
+
+runs the requests' and evaluation passes' profile above with the package of
+the other checkout and with this one, in the same order, each in a process of
+its own (``--profile-root DIR`` is one such turn).
 """
 
 import json
@@ -50,7 +56,7 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the package comes from this checkout, or from the one named by --root
-PACKAGE_ROOT = os.path.abspath(sys.argv[2]) if sys.argv[1:2] == ["--root"] else ROOT
+PACKAGE_ROOT = os.path.abspath(sys.argv[2]) if sys.argv[1:2] in (["--root"], ["--profile-root"]) else ROOT
 sys.path.insert(0, PACKAGE_ROOT)
 
 import numpy as np
@@ -72,7 +78,7 @@ REQUESTS = 5
 
 
 def group(name: str) -> str:
-    if "fps_register_kernel" in name or "fps_dist_kernel" in name:
+    if any(t in name for t in ("fps_register", "fps_dist_kernel", "fps_cluster_kernel")):
         return "fps (CUDA kernel)"
     if "ball_query_kernel" in name:
         return "ball_query (CUDA kernel)"
@@ -216,8 +222,9 @@ def main():
     if sys.argv[1:2] in (["--train"], ["--train-dp"]):
         return train_profile(sys.argv[2], [int(b) for b in sys.argv[3:]] or [24, 256],
                              data_parallel=sys.argv[1] == "--train-dp")
-    if sys.argv[1:2] == ["--latency-against"]:
-        me = [sys.executable, os.path.abspath(__file__), "--root"]
+    if sys.argv[1:2] in (["--latency-against"], ["--profile-against"]):
+        turn = "--root" if sys.argv[1] == "--latency-against" else "--profile-root"
+        me = [sys.executable, os.path.abspath(__file__), turn]
         sys.exit(max(subprocess.run([*me, root]).returncode
                      for root in (sys.argv[2], ROOT, ROOT, sys.argv[2])))
     if sys.argv[1:2] == ["--root"]:
@@ -243,7 +250,7 @@ def main():
         key = f"evaluate {name}, {len(test)} clouds"
         report[key] = profiled(lambda: evaluate(cfg, model, test), REQUESTS)
         print(json.dumps({key: report[key]}, indent=1), flush=True)
-    print(json.dumps({"card": card_line(), "profile": report}))
+    print(json.dumps({"card": card_line(), "package": PACKAGE_ROOT, "profile": report}))
 
 
 if __name__ == "__main__":

@@ -16,7 +16,14 @@ from pointnet_like_pose_estimation_tpu_torch.kernels.ball_group import (
     ball_query_multi,
     ball_query_reference,
 )
-from pointnet_like_pose_estimation_tpu_torch.kernels.fps import fps, fps_reference
+from pointnet_like_pose_estimation_tpu_torch.kernels.fps import (
+    CLUSTER_BLOCKS,
+    CLUSTER_PATH,
+    MAX_CLUSTER_POINTS,
+    fps,
+    fps_plan,
+    fps_reference,
+)
 from pointnet_like_pose_estimation_tpu_torch.kernels.fused_sa import (
     fused_sa_infer,
     fused_sa_reference,
@@ -52,11 +59,17 @@ def _clouds(B, N, seed):
         (2, 2048, 3, 1024),    # 8 points a thread, 256 threads
         (2, 3000, 3, 1024),    # 8 points a thread, 512 threads, ragged
         (2, 5000, 3, 256),     # above the register path: distances in shared memory
-        (2, 777, 6, 128),      # C != 3 takes the shared path too
-        (3, 1024, 10, 512),    # a pose head's SA1: the spliced cloud's 10 channels
+        (2, 777, 6, 128),      # C other than 3 and 10 takes the shared path
+        (3, 1024, 10, 512),    # a pose head's SA1: the spliced cloud's 10 channels, register path
         (3, 512, 10, 128),     # a pose head's SA2
-        (2, 57_857, 3, 128),   # above shared memory: distances in a scratch tensor in device memory
-        (1, 70_000, 10, 64),   # the global path at the spliced cloud's 10 channels
+        (2, 2048, 10, 1024),   # C = 10, 8 points a thread
+        (2, 4096, 10, 256),    # C = 10, 512 threads of 8 points, the register path's largest cloud
+        (2, 57_857, 3, 128),   # above shared memory: one cloud over a thread-block cluster
+        (1, 70_000, 10, 64),   # the cluster path at the spliced cloud's 10 channels
+        (2, 100_003, 3, 128),  # ragged: N no multiple of the cluster's blocks or threads
+        (1, 200_001, 6, 64),   # the cluster path's any-C instance (512 threads a block)
+        (1, 300_000, 3, 512),  # a near object of a 640x480 frame
+        (1, MAX_CLUSTER_POINTS + 1, 3, 16),  # above the cluster: distances in device memory
     ],
 )
 def test_fps_kernel_matches_plain_version(card, B, N, C, S):
@@ -67,6 +80,33 @@ def test_fps_kernel_matches_plain_version(card, B, N, C, S):
     got = fps(pts, S, start)
     torch.cuda.synchronize()
     assert torch.equal(got, fps_reference(pts, S, start))
+
+
+def test_fps_cluster_ties_across_slices(card):
+    """A tiled cloud above shared memory: each point's duplicates lie in
+    other blocks' slices, so the maxima tie across the cluster and the
+    lowest index must win; past the 700 distinct points every distance is 0
+    and index 0 wins each step."""
+    N = 60_000 * 3 + 7
+    assert fps_plan(N) == (1024, CLUSTER_PATH) and -(-N // CLUSTER_BLOCKS) < 60_000
+    pts = _clouds(2, 700, 6).repeat(1, -(-N // 700), 1)[:, :N].contiguous().to(card)
+    got = fps(pts, 800, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fps_reference(pts, 800, 3))
+    assert int(got[:, :700].max()) < 700 and int(got[:, 700:].max()) == 0
+
+
+def test_fps_cluster_start_in_the_last_slice(card):
+    """Per-cloud starts in the last block's slice: its last point and its
+    first, on a ragged cloud."""
+    N = MAX_CLUSTER_POINTS - 12_345
+    pts = _clouds(2, N, 7).to(card)
+    first_of_last = (CLUSTER_BLOCKS - 1) * -(-N // CLUSTER_BLOCKS)
+    start = torch.tensor([N - 1, first_of_last], dtype=torch.int32, device=card)
+    got = fps(pts, 96, start)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fps_reference(pts, 96, start))
+    assert torch.equal(got[:, 0], start)
 
 
 @pytest.mark.parametrize("M,reps", [(40, 4), (300, 4), (700, 8)])

@@ -1,8 +1,9 @@
 """What the port's kernel wrappers decide in Python before a launch, on the
 CPU: the fused-SA launch plan (rows per chunk, centroids per block, shared
-bytes), the FPS plan (threads, points per thread, register or shared path),
-and the three-product TF32 arithmetic that the fused-SA kernel runs on the
-tensor cores, spelled in plain PyTorch beside the wrapper."""
+bytes), the FPS plan (threads, points per thread; register, shared, cluster
+or global path) and the FPS calls the registry's models make, and the
+three-product TF32 arithmetic that the fused-SA kernel runs on the tensor
+cores, spelled in plain PyTorch beside the wrapper."""
 
 import re
 from pathlib import Path
@@ -11,12 +12,20 @@ import numpy as np
 import pytest
 import torch
 
+from pointnet_like_pose_estimation_tpu_torch.kernels import fps as fps_module
 from pointnet_like_pose_estimation_tpu_torch.kernels import fused_sa
 from pointnet_like_pose_estimation_tpu_torch.kernels.fps import (
+    CLUSTER_BLOCKS,
+    CLUSTER_PATH,
+    CLUSTER_SMALL_SLICE,
     GLOBAL_PATH,
+    MAX_CLUSTER_POINTS,
     MAX_REGISTER_POINTS,
     MAX_SHARED_POINTS,
+    MAX_SLICE_POINTS,
+    REGISTER_CHANNELS,
     SHARED_PATH,
+    SMS,
     fps_plan,
 )
 from pointnet_like_pose_estimation_tpu_torch.kernels.fused_sa import (
@@ -25,6 +34,8 @@ from pointnet_like_pose_estimation_tpu_torch.kernels.fused_sa import (
     matmul_3xtf32,
     tf32_split,
 )
+from pointnet_like_pose_estimation_tpu_torch.models import MODEL_REGISTRY, build_model, get_model_spec
+from pointnet_like_pose_estimation_tpu_torch.train.config import TrainConfig
 
 CSRC = Path(fused_sa.__file__).resolve().parent / "csrc"
 SSG_SA1 = (3, (32,), ((64, 64, 128),))
@@ -153,9 +164,20 @@ def test_python_mirrors_the_kernel_constants():
     assert fused_sa.MAX_LAYERS == _constant(cu, "kMaxLayers")
     assert fused_sa._WARPS * 32 == _constant(cu, "kThreads")
     fps_cu = (CSRC / "fps.cu").read_text()
-    assert MAX_REGISTER_POINTS == 512 * _constant(fps_cu, "kMaxPointsPerThread")
+    assert MAX_REGISTER_POINTS == (_constant(fps_cu, "kRegisterThreads")
+                                   * _constant(fps_cu, "kMaxPointsPerThread"))
+    assert REGISTER_CHANNELS == (_constant(fps_cu, "kCloudChannels"), _constant(fps_cu, "kSplicedChannels"))
     assert SHARED_PATH == _constant(fps_cu, "kSharedPath")
     assert GLOBAL_PATH == _constant(fps_cu, "kGlobalPath")
+    assert CLUSTER_PATH == _constant(fps_cu, "kClusterPath")
+    assert fps_plan(MAX_CLUSTER_POINTS, C=6)[0] <= _constant(fps_cu, "kAnyChannelThreads")
+    # a block's dynamic shared memory, and a cluster block's less its inbox
+    assert "constexpr int kMaxSharedBytes = 227 * 1024 - 1024;" in fps_cu
+    assert MAX_SHARED_POINTS * 4 == 227 * 1024 - 1024
+    inbox = 2 * _constant(fps_cu, "kMaxClusterBlocks") * (2 + _constant(fps_cu, "kMaxChannels")) * 4
+    assert "kMaxSliceBytes = kMaxSharedBytes - 2 * kMaxClusterBlocks * (2 + kMaxChannels) * 4;" in fps_cu
+    assert MAX_SLICE_POINTS == (227 * 1024 - 1024 - inbox) // 4
+    assert 2 <= CLUSTER_BLOCKS <= _constant(fps_cu, "kMaxClusterBlocks")
 
 
 @pytest.mark.parametrize(
@@ -167,21 +189,26 @@ def test_python_mirrors_the_kernel_constants():
         (2048, 256, 8),
         (3000, 512, 8),
         (4096, 512, 8),
-        (4097, 1024, 0),          # above the register path: distances in shared memory
+        (4097, 1024, 0),          # above the register path, for many clouds: distances in shared memory
         (MAX_SHARED_POINTS, 1024, 0),
-        (MAX_SHARED_POINTS + 1, 1024, -1),     # above shared memory: distances in device memory
-        (300_000, 1024, -1),      # a near object of a 640x480 frame
+        (MAX_SHARED_POINTS + 1, 512, -2),      # above shared memory: one cloud over a cluster
+        (300_000, 1024, -2),      # a near object of a 640x480 frame: 1024 threads for its large slices
+        (MAX_CLUSTER_POINTS, 1024, -2),        # the largest cloud the cluster holds
+        (MAX_CLUSTER_POINTS + 1, 1024, -1),    # above it: distances in device memory
     ],
 )
 def test_fps_plan(N, threads, points_per_thread):
-    assert fps_plan(N) == (threads, points_per_thread)
+    assert fps_plan(N, B=64) == (threads, points_per_thread)
     assert threads % 32 == 0 and threads <= 1024
     if points_per_thread > 0:
         assert points_per_thread in (1, 2, 4, 8) and threads * points_per_thread >= N
+        assert threads <= 512             # the register kernel's launch bound
     elif points_per_thread == SHARED_PATH:
         assert 4 * N <= 227 * 1024 - 1024
+    elif points_per_thread == CLUSTER_PATH:
+        assert 4 * N > 227 * 1024 - 1024 and -(-N // CLUSTER_BLOCKS) <= MAX_SLICE_POINTS
     else:
-        assert points_per_thread == GLOBAL_PATH and 4 * N > 227 * 1024 - 1024
+        assert points_per_thread == GLOBAL_PATH and -(-N // CLUSTER_BLOCKS) > MAX_SLICE_POINTS
 
 
 @pytest.mark.parametrize("N", [1, 31, 33, 129, 257, 513, 1025, 2049])
@@ -192,8 +219,85 @@ def test_fps_register_plan_covers_every_size(N):
 
 
 def test_fps_plan_other_channel_counts_take_the_shared_path():
-    assert fps_plan(512, C=6) == (1024, 0)
-    assert fps_plan(70_000, C=10) == (1024, GLOBAL_PATH)
+    """Where each channel count goes: 3 and 10 (a pose head's spliced
+    cloud) have register-path instances; every other C takes the shared
+    path below shared memory, and every C takes the cluster path above it."""
+    for C in range(1, 17):
+        want = (256, 2) if C in (3, 10) else (1024, SHARED_PATH)
+        assert fps_plan(512, C=C, B=32) == want, C
+        assert fps_plan(5000, C=C, B=32) == (1024, SHARED_PATH), C
+        assert fps_plan(70_000, C=C, B=32) == (512, CLUSTER_PATH), C
+        # slices above 8192 points: 1024 threads a block, but 512 for the any-C instance
+        assert fps_plan(300_000, C=C) == (1024 if C in (3, 10) else 512, CLUSTER_PATH), C
+        assert fps_plan(MAX_CLUSTER_POINTS + 1, C=C) == (1024, GLOBAL_PATH), C
+
+
+@pytest.mark.parametrize("N,points_per_thread", [(512, 2), (1024, 4), (2048, 8), (4096, 8)])
+def test_fps_plan_spliced_channels_take_the_register_path(N, points_per_thread):
+    """C = 10, a pose head's SA1 and SA2 (1024 and 512 points): the register
+    path, 8 points a thread at most (88 floats of state a thread)."""
+    threads, ppt = fps_plan(N, C=10, B=32)
+    assert (ppt, threads * ppt >= N, threads <= 512) == (points_per_thread, True, True)
+
+
+@pytest.mark.parametrize(
+    "N,B,plan",
+    [
+        (4096, 1, (512, 8)),                  # the register path holds it
+        (4097, 1, (512, CLUSTER_PATH)),       # one cloud: 16 blocks of 257 points
+        (5000, 8, (512, CLUSTER_PATH)),       # 8 clusters of 16 blocks fit on 132 SMs
+        (5000, 9, (1024, SHARED_PATH)),       # 9 do not
+        (20_000, 2, (512, CLUSTER_PATH)),
+        (MAX_SHARED_POINTS, 1, (512, CLUSTER_PATH)),
+        (16 * CLUSTER_SMALL_SLICE, 1, (512, CLUSTER_PATH)),
+        (16 * CLUSTER_SMALL_SLICE + 1, 1, (1024, CLUSTER_PATH)),    # slices above 8192 points
+        (MAX_SHARED_POINTS + 1, 64, (512, CLUSTER_PATH)),            # above shared memory: any B
+    ],
+)
+def test_fps_plan_few_clouds_take_the_cluster_path(N, B, plan):
+    """Below shared memory the cluster path serves as few clouds as whole
+    clusters fit on the card's SMs at once (measured faster than the shared
+    path there, PERF.md)."""
+    assert CLUSTER_BLOCKS * 8 <= SMS < CLUSTER_BLOCKS * 9
+    assert fps_plan(N, C=3, B=B) == plan
+    # C = 6 has no register path, and the cluster path's any-C instance takes 512 threads
+    want = (512, CLUSTER_PATH) if plan[1] == CLUSTER_PATH else (1024, SHARED_PATH)
+    assert fps_plan(N, C=6, B=B) == want
+
+
+@pytest.mark.parametrize("name", sorted(MODEL_REGISTRY))
+def test_registry_fps_calls_take_a_register_path(name, monkeypatch):
+    """A forward of each registry model at full width (the configured 1024
+    points, published widths) on the CPU, with ``fps_reference`` recording
+    the ``(N, C)`` of each FPS call: the card's plan puts every one on the
+    register path, whatever the batch."""
+    calls = []
+    reference = fps_module.fps_reference
+
+    def recording(points, num_samples, start_idx=0):
+        calls.append(tuple(points.shape[1:]))
+        return reference(points, num_samples, start_idx)
+
+    monkeypatch.setattr(fps_module, "fps_reference", recording)
+    spec = get_model_spec(name)
+    N, K = TrainConfig().num_points, 7
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2, N, 3)).astype(np.float32))
+    if spec.input_kind == "xyz":
+        args = (x,)
+    else:
+        spliced = torch.cat([x, torch.nn.functional.one_hot(torch.tensor([1, 4]), K)[:, None]
+                             .expand(2, N, K).float()], -1)
+        args = (spliced, torch.zeros(2, 3)) if spec.input_kind == "spliced_mean" else (spliced,)
+    model = build_model(name, K).eval()
+    with torch.no_grad():
+        model(*args)
+    has_sa = "ssg" in name or "msg" in name
+    assert bool(calls) == has_sa, calls
+    for n, c in calls:
+        assert c in REGISTER_CHANNELS and n <= MAX_REGISTER_POINTS, (n, c)
+        for B in (1, 32, 256):
+            assert fps_plan(n, c, B)[1] in (1, 2, 4, 8), (n, c, B)
 
 
 @pytest.mark.parametrize("N", [0, -1])

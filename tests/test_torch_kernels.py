@@ -39,6 +39,27 @@ def test_fps_reference_matches_pallas_and_xla(with_start):
     assert got.dtype == np.int32
 
 
+@pytest.mark.parametrize("kind", ["spliced", "random"])
+def test_fps_reference_at_ten_channels_matches_pallas_and_xla(kind):
+    """C = 10, the channel count of a pose head's FPS calls (the kernel's
+    second register-path instance): a unit cloud spliced with a 7-class
+    one-hot (a different class per cloud), and 10 random channels."""
+    rng = np.random.default_rng(2)
+    B, N, S = 3, 128, 48
+    if kind == "spliced":
+        onehot = np.zeros((B, N, 7), np.float32)
+        onehot[np.arange(B), :, rng.integers(0, 7, B)] = 1.0
+        pts = np.concatenate([_unit_clouds(rng, (B, N, 3)), onehot], -1)
+    else:
+        pts = rng.standard_normal((B, N, 10)).astype(np.float32)
+    start = np.array([0, 77, 127], np.int32)
+    got = fps_reference(torch.from_numpy(pts), S, torch.from_numpy(start)).numpy()
+    pallas = fps_pallas(jnp.asarray(pts), S, start_idx=jnp.asarray(start), interpret=True)
+    xla = jax_fps(jnp.asarray(pts), S, start_idx=jnp.asarray(start))
+    np.testing.assert_array_equal(got, np.asarray(pallas))
+    np.testing.assert_array_equal(got, np.asarray(xla))
+
+
 def test_fps_reference_above_the_shared_limit_matches_xla():
     """60,000 points, above the 57,856 that the kernel's shared path holds:
     the plain version (the global path's reference on the card) picks the
