@@ -21,13 +21,22 @@ Phases, any failure exits non-zero:
    between two events), beside its bound; for the ball query the time of a
    call launched from Python in a loop stands beside it;
 4. serve requests through GraspPipeline.from_checkpoints on the five
-   committed checkpoints: the replay clusters of tests/fixtures and two
-   seeded batches (M > 1024 and M < 1024). The launch counts must show
-   both kernels ran; every output is held against the same pipeline on the
+   committed checkpoints: the replay clusters of tests/fixtures and three
+   seeded batches (M > 1024, M < 1024, and one more M > 1024 in the bucket
+   of the first). Each request is a replay of its bucket's program (a CUDA
+   graph, utils/programs.py): its launch counts are the program's
+   launches per run times its runs (a capture's warm-up runs too), and the
+   counts must show both kernels ran, and one replay traced by
+   torch.profiler must run on the card the 3 FPS and 2 ball-query kernels
+   its capture recorded; every output is held against the
+   program's function run eagerly on the card on the same inputs
+   (integers equal, floats within PROGRAM_TOL), the same pipeline on the
    CPU and the replay request against the recorded JAX outputs
    (pred_class equal, floats within rtol = atol = 1e-3: TF32 is off, so
    only summation order and last-bit FPS ties differ). Then latency per
-   request at 4 and 32 clusters and peak device memory;
+   request of a replay and of the eager function, in turns, at 4 and 32
+   clusters, peak device memory, and the programs' captures, capture time,
+   replays and pool;
 5. the fused set-abstraction kernel: its MMA fragment layout on one
    16x8x8 tile against a float64 product; then against its plain version
    at the shapes of the four SA calls of the two executors (B = 8), with
@@ -38,13 +47,17 @@ Phases, any failure exits non-zero:
    and its time at the path's own calls (B = 32, N = 1024, the executors'
    folded weights) beside the f32 bound and the tensor-core bound, and no
    share of a bound may read over 100%;
-6. the fused eval executors (models/fast_infer.py): the SSG one on the
-   committed r3 classifier, the MSG one on seeded weights with nontrivial
-   BatchNorm. The launch counts must show 2 fused-SA and 2 FPS launches and
-   no ball query per forward; outputs are held against the unfused models
-   on the card and the executors on the CPU (pred equal, log_probs within
-   TOL), the replay classes against the recorded JAX ones. Then latency
-   and peak device memory of executor and unfused model at B = 32 and 256.
+6. the fused eval executors (models/fast_infer.py), each forward a
+   replay of its (B, N) program: the SSG one on the committed r3
+   classifier (two seeded batches in one bucket), the MSG one on seeded
+   weights with nontrivial BatchNorm. The launch counts must show 2
+   fused-SA and 2 FPS launches and no ball query per run of a program;
+   outputs are held against the executor's function run eagerly on the
+   card (PROGRAM_TOL), the unfused models on the card and the executors on
+   the CPU (pred equal, log_probs within TOL), the replay classes against
+   the recorded JAX ones. Then latency and peak device memory of the
+   executor's replay, its eager function and the unfused model at B = 32
+   and 256.
 
 7. the evaluation path (cli.py generate and eval, data/dataset.py
    build_dataset, train/loop.py evaluate): a seeded dataset built on the
@@ -87,18 +100,28 @@ Phases, any failure exits non-zero:
    (BF16_* bounds), its Linear layers computing in bf16 and its gradients
    nearer the CPU's bf16 step than its f32 one; evaluate of the committed r5_pn2_ssg_bf16 checkpoint in
    bf16 against the CPU and its eval throughput beside f32; a bf16 request
-   from the r3 checkpoints against the CPU, and request latency at 4 and
-   32 clusters in f32 and bf16.
+   from the r3 checkpoints against the eager run on the card and the CPU,
+   and request latency (replay and eager) at 4 and 32 clusters in f32 and
+   bf16.
 
 10. the raw-frame path (cli.py infer, GraspPipeline.__call__ and stream,
    pipeline/preprocess.py): cli infer on the replay scene on the card
    against --device cpu; the 28k and 300k synthetic frames (FRAME_SEEDS
    seeds each) served against the CPU, the cleaned points equal bit for
-   bit; a frame whose RANSAC draws hold a triple that repeats a point is
+   bit, and against the scene program's function run eagerly on the card
+   (PROGRAM_TOL), each frame's launches its program's per run times its
+   runs; a frame whose RANSAC draws hold a triple that repeats a point is
    lost, as the reference loses it, and is checked to be; latency by stage
-   (clip, clean, DBSCAN, infer) of the first frame served, __call__ latency,
-   and stream's served frames/s over two windows of the same 12 frames,
-   with the frames lost beside it, against the 33 ms budget.
+   (clip, clean, DBSCAN, infer as a replay and as the eager function) of
+   the first frame served and __call__ latency on its captured program;
+   then a camera's stream of one scene, each frame distinct (its own depth
+   noise and dropped points): CAMERA_FRAMES frames through __call__ of a
+   fresh pipeline, each held against the eager run on the card, with the
+   captures they cause, which frames paid one and the frame latency with
+   them included (median, p90, max), the distinct program keys beside the
+   JAX package's; then stream's served frames/s over two windows of new
+   frames of that camera, with the frames lost and the captures in each,
+   against the 33 ms budget.
 
 11. the data phase (ROADMAP items 6 and 11): FPS past the shared path's
    57,856 points on the kernel's cluster path (one cloud over a
@@ -108,8 +131,9 @@ Phases, any failure exits non-zero:
    picks and the time of a call in a CUDA graph beside its bound; then, with the launch
    counts set to 0: a frame with an object of 70,000 points served on the
    card against --device cpu (the plane removal alone, classes equal, floats
-   within TOL, the clusters kept) and with the radius clean on the card,
-   its stages timed; ModelNet's uniform resampling of 10,000-point clouds
+   within TOL, the clusters kept) and with the radius clean on the card
+   (the scene program, its truncation FPS on the cluster path inside the
+   graph, against the eager run), its stages timed; ModelNet's uniform resampling of 10,000-point clouds
    with normals on the card against the CPU, bit for bit, and one epoch of
    pointnet2_cls_ssg on it; the reference's txt layout written from a
    dataset built on the card, read back by load_reference_layout equal to a
@@ -174,6 +198,10 @@ TOL = 1e-3
 FUSED_TOL = 1e-4
 # the MMA self-test: one 16x8x8 tile against the float64 product
 MMA_TOL = 1e-5
+# a program's replay (a CUDA graph) against its function run eagerly on the
+# card on the same inputs: the same kernels on the same data, so the floats
+# are expected bit for bit; the gap measured is printed
+PROGRAM_TOL = 1e-5
 # the train step on the card against the CPU: loss, metric, BN statistics,
 # parameters, and every gradient element where the tensor allows. A gradient
 # element is held to TRAIN_TOL relative and TRAIN_TOL times the model's
@@ -725,18 +753,150 @@ def timed(fn, reps: int) -> dict:
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
     return {"median_ms": statistics.median(times), "min_ms": min(times),
-            "max_ms": max(times), "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20}
+            "max_ms": max(times), "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20,
+            "reserved_mb": torch.cuda.memory_reserved() / 2**20}
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Kernel launches inside are no launches of the main path (an eager
+    run held against a replay, or timed beside it): the counts are put back."""
+    from pointnet_like_pose_estimation_tpu_torch.utils.programs import COUNTED
+
+    saved = {name: wrapper.launches for name, wrapper in COUNTED.items()}
+    try:
+        yield
+    finally:
+        for name, wrapper in COUNTED.items():
+            wrapper.launches = saved[name]
+
+
+def runs_of(cache, fn):
+    """``fn()`` and the times the programs of ``cache`` ran on the card in
+    it: each replay, and the warm-up before each capture. A kernel wrapper's
+    launches in ``fn`` are its launches per run times this."""
+    import torch
+
+    c0, r0 = cache.captures, cache.replays
+    out = fn()
+    torch.cuda.synchronize()
+    return out, cache.captures - c0 + cache.replays - r0
+
+
+def output_gap(got: dict, want: dict, what: str) -> float:
+    """A replay against the same function run eagerly on the card on the
+    same inputs: every integer output equal, every float within
+    PROGRAM_TOL; the largest float gap."""
+    check(set(got) == set(want), f"{what}: keys {sorted(got)} against {sorted(want)}")
+    gap = 0.0
+    for k in got:
+        a, b = np.asarray(got[k]), np.asarray(want[k])
+        check(a.shape == b.shape and a.dtype == b.dtype, f"{what}: {k} {a.dtype} {a.shape} against {b.dtype} {b.shape}")
+        if np.issubdtype(a.dtype, np.floating):
+            gap = max(gap, float(np.abs(a - b).max()) if a.size else 0.0)
+        else:
+            check(np.array_equal(a, b), f"{what}: {k} differs from the eager run on the card")
+    check(gap <= PROGRAM_TOL, f"{what}: floats {gap} from the eager run on the card, over {PROGRAM_TOL}")
+    return gap
+
+
+def eager_request(pipe, clusters) -> dict:
+    """``infer_clusters``'s work without its graph: the same bucketed
+    inputs, the request program's function run eagerly on the card, the
+    same copies back to the host."""
+    import torch
+
+    _, fn, inputs, K = pipe._request_call(clusters)
+    with torch.inference_mode():
+        out = fn(*(x.to(pipe.device) for x in inputs))
+        return {k: v[:K].cpu().numpy() for k, v in out.items()}
+
+
+def eager_scene(pipe, pts, labels) -> dict:
+    """``_infer_scene``'s work without its graph (the scene program's
+    function run eagerly on the card)."""
+    import torch
+
+    _, fn, inputs, K, min_size = pipe._scene_call(pts, labels)
+    with torch.inference_mode():
+        out, cglobal = fn(*(x.to(pipe.device) for x in inputs))
+        res = {k: v[:K].cpu().numpy() for k, v in out.items()}
+        res["clusters"] = pts[cglobal[:K, :min_size].cpu().numpy()]
+    return res
+
+
+def graph_pools_mb(pool=None):
+    """Device memory the caching allocator holds in ``pool`` (a program
+    cache's pool), or in every private pool (every CUDA graph's pool on the
+    card at this moment) when ``pool`` is None; "not measured" where its
+    snapshot does not name a segment's pool."""
+    import torch
+
+    segments = torch.cuda.memory_snapshot()
+    if any("segment_pool_id" not in seg for seg in segments):
+        return "not measured"
+    ids = [tuple(seg["segment_pool_id"]) for seg in segments]
+    mine = (lambda i: i == tuple(pool)) if pool is not None else (lambda i: i != (0, 0))
+    return sum(seg["total_size"] for seg, i in zip(segments, ids) if mine(i)) / 2**20
+
+
+def programs_line(what: str, cache) -> dict:
+    """A program cache's counters, its own pool's MB (``pool_mb``) and all
+    graph pools' MB on the card (``graph_pools_mb``)."""
+    row = {"captures": cache.captures, "capture_s": cache.capture_seconds, "replays": cache.replays,
+           "held": len(cache), "evictions": cache.evictions,
+           "pool_mb": graph_pools_mb(cache.pool) if cache.pool is not None else 0.0,
+           "graph_pools_mb": graph_pools_mb()}
+    log(f"  programs {what}: {json.dumps(row)}")
+    return row
+
+
+# the kernels of the port by the name the profiler gives them
+PROFILED_KERNELS = {"fps": ("fps_register_kernel", "fps_register_spliced_kernel", "fps_dist_kernel",
+                            "fps_cluster_kernel"),
+                    "ball_query": ("ball_query_kernel",), "fused_sa": ("fused_sa_kernel",)}
+
+
+def profiled_launches(fn) -> dict[str, int]:
+    """The port's kernels that ran on the card in ``fn()``, counted by
+    torch.profiler from the card's own trace (CUPTI records the kernels a
+    graph replay runs), by kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(PROFILED_KERNELS, 0)
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            for name, marks in PROFILED_KERNELS.items():
+                counts[name] += any(m in ev.name for m in marks)
+    return counts
+
+
+def resampled(pipe, clusters):
+    """Host clusters ``[K, M, 3]`` resampled to the pipeline's
+    ``num_points`` on its device, as a request resamples them."""
+    import torch
+
+    with torch.inference_mode():
+        return pipe._resample_tensor(torch.from_numpy(np.ascontiguousarray(clusters[..., :3])).to(pipe.device))
 
 
 def fast_infer_phase(pipe, executors, kernels: list[dict]) -> dict:
-    """The fused executors on their main path: the SSG one on the trained
-    r3 checkpoint (replay clusters and a seeded batch of 32, prepared as the
+    """The fused executors on their main path, each forward one replay of
+    its (B, N) program: the SSG one on the trained r3 checkpoint (replay
+    clusters and two seeded batches of 32 in one bucket, prepared as the
     pipeline prepares them), the MSG one on seeded weights (a seeded batch
-    of 32). Each forward must add 2 fused_sa, 2 fps and 0 ball-query
-    launches. Every output is held against the unfused model on the card
-    and the same executor on the CPU (pred equal, log_probs within TOL), and
-    the replay classes against the recorded JAX pred_class. Then latency
-    and peak memory of executor against unfused model, B = 32 and 256."""
+    of 32). Each run of a program must add 2 fused_sa, 2 fps and 0
+    ball-query launches. Every output is held against the executor's
+    function run eagerly on the card (PROGRAM_TOL), the unfused model on the
+    card and the same executor on the CPU (pred equal, log_probs within
+    TOL), and the replay classes against the recorded JAX pred_class. Then
+    latency and peak memory of the executor's replay, its eager function
+    and the unfused model, B = 32 and 256."""
     import torch
 
     from pointnet_like_pose_estimation_tpu_torch.kernels.ball_group import ball_query_multi
@@ -748,10 +908,11 @@ def fast_infer_phase(pipe, executors, kernels: list[dict]) -> dict:
     rng = np.random.default_rng(2)
 
     def prepare(clusters):
-        return normalize_cloud(pipe._resample(clusters))
+        return normalize_cloud(resampled(pipe, clusters))
 
     requests = [("SSG", "replay", prepare(fix["clusters"])),
                 ("SSG", "seeded B=32", prepare(blobs(rng, 32, 2048))),
+                ("SSG", "seeded B=32, same bucket", prepare(blobs(rng, 32, 2048))),
                 ("MSG", "seeded B=32", prepare(blobs(rng, 32, 2048)))]
 
     def counts():
@@ -760,24 +921,31 @@ def fast_infer_phase(pipe, executors, kernels: list[dict]) -> dict:
     fused_sa_infer.launches = fps.launches = ball_query_multi.launches = 0
     outputs = []
     for ex, name, x in requests:
+        fwd = executors[ex][0]
         before = counts()
-        log_probs, pred = executors[ex][0](x)
-        torch.cuda.synchronize()
+        (log_probs, pred), runs = runs_of(fwd.programs, lambda: fwd(x))
         got = tuple(a - b for a, b in zip(counts(), before))
-        check(got == (2, 2, 0), f"{ex} {name}: launches fused_sa/fps/ball_query {got}, want (2, 2, 0)")
-        outputs.append((ex, name, x, log_probs, pred))
+        check(got == (2 * runs, 2 * runs, 0),
+              f"{ex} {name}: launches fused_sa/fps/ball_query {got}, want (2, 2, 0) a run, {runs} runs")
+        outputs.append((ex, name, x, log_probs, pred, runs))
     launches = dict(zip(("fused_sa", "fps", "ball_query"), counts()))
     check(launches["fused_sa"] > 0 and launches["fps"] > 0, "fast-infer path launched no kernel")
+    check(outputs[2][5] == 1, "SSG: the second batch of one bucket was not a replay")
+    check(not torch.equal(outputs[1][3], outputs[2][3]), "SSG: the second batch of one bucket gave the first's")
     for k in kernels:
         k.setdefault("launches_by_path", {"serving": k["launches"]})["fast_infer"] = launches[k["name"]]
         if k["name"] == "fused_sa":
             k["launches"] = launches["fused_sa"]
 
-    for ex, name, x, log_probs, pred in outputs:
-        _, cpu_fwd, model = executors[ex]
+    report = {"forwards": {}}
+    for ex, name, x, log_probs, pred, runs in outputs:
+        fwd, cpu_fwd, model = executors[ex]
         check(log_probs.shape == (x.shape[0], 7) and bool(torch.isfinite(log_probs).all()),
               f"{ex} {name}: log_probs shape or non-finite")
-        with torch.inference_mode():
+        with uncounted(), torch.inference_mode():
+            e_lp, e_pred = fwd.body(x)
+            gap = output_gap({"log_probs": log_probs.cpu(), "pred": pred.cpu()},
+                             {"log_probs": e_lp.cpu(), "pred": e_pred.cpu()}, f"{ex} {name}")
             m_lp, _, m_pred = model(x)
         c_lp, c_pred = cpu_fwd(x.cpu())
         for what, lp, pr in (("unfused model on the card", m_lp, m_pred),
@@ -787,6 +955,8 @@ def fast_infer_phase(pipe, executors, kernels: list[dict]) -> dict:
             check(torch.allclose(log_probs.cpu(), lp.cpu(), rtol=TOL, atol=TOL),
                   f"{ex} {name}: log_probs differ from the {what} (max {diff})")
             log(f"  {ex} {name}: matches the {what} (log_probs max abs diff {diff:.3g})")
+        log(f"  {ex} {name}: {runs} runs of its program; the eager run on the card within {gap:.3g}")
+        report["forwards"][f"{ex} {name}"] = {"runs": runs, "eager_gap": gap}
         if name == "replay":
             check(np.array_equal(pred.cpu().numpy(), fix["pred_class"]),
                   f"SSG replay: pred {pred.tolist()} vs recorded JAX {fix['pred_class'].tolist()}")
@@ -796,14 +966,25 @@ def fast_infer_phase(pipe, executors, kernels: list[dict]) -> dict:
     for B in (32, 256):
         x = normalize_cloud(torch.from_numpy(blobs(rng, B, 1024)).to(pipe.device))
         for ex, (fwd, _, model) in executors.items():
-            for what, fn in (("fused", lambda: fwd(x)), ("unfused", lambda: model(x))):
-                with torch.inference_mode():
+            for what, fn in (("fused", lambda: fwd(x)), ("fused eager", lambda: fwd.body(x)),
+                             ("unfused", lambda: model(x))):
+                with uncounted() if what != "fused" else contextlib.nullcontext(), torch.inference_mode():
                     latency[f"{ex} B={B} {what}"] = timed(fn, 10)
                 log(f"  latency {ex} B={B} {what}: {json.dumps(latency[f'{ex} B={B} {what}'])}")
-    return latency
+    report["programs"] = {ex: programs_line(f"{ex} executor", fwd.programs)
+                          for ex, (fwd, _, _) in executors.items()}
+    report["latency"] = latency
+    return report
 
 
 def serving_phase(pipe, cpu, kernels: list[dict]) -> dict:
+    """Requests through ``infer_clusters``, each one replay of its bucket's
+    program: the launches of each request are its program's launches per
+    run times the runs (a capture adds its warm-up's); every output against
+    the program's function run eagerly on the card, the CPU pipeline and,
+    for the replay clusters, the recorded JAX outputs; a second request in
+    one bucket with other clusters. Then the latency of a replay beside the
+    eager function at 4 and 32 clusters of 2048 points."""
     import torch
 
     from pointnet_like_pose_estimation_tpu_torch.kernels.ball_group import ball_query_multi
@@ -812,8 +993,9 @@ def serving_phase(pipe, cpu, kernels: list[dict]) -> dict:
     fix = np.load(FIXTURE)
     rng = np.random.default_rng(1)
 
+    # the last request shares the (4, 1792) bucket of the second: a stale static input would show
     requests = [("replay", fix["clusters"]), ("seeded M>1024", blobs(rng, 4, 1600)),
-                ("seeded M<1024", blobs(rng, 4, 700))]
+                ("seeded M<1024", blobs(rng, 4, 700)), ("seeded M>1024, same bucket", blobs(rng, 3, 1700))]
 
     def compare(name, got, want, keys):
         np.testing.assert_array_equal(got["pred_class"], want["pred_class"], err_msg=name)
@@ -825,26 +1007,44 @@ def serving_phase(pipe, cpu, kernels: list[dict]) -> dict:
     fps.launches = ball_query_multi.launches = 0
     for name, clusters in requests:
         f0, b0 = fps.launches, ball_query_multi.launches
-        out = pipe.infer_clusters(clusters)
-        torch.cuda.synchronize()
+        out, runs = runs_of(pipe.programs, lambda: pipe.infer_clusters(clusters))
+        key = pipe._request_call(clusters)[0]
         want_fps = 3 if clusters.shape[1] > 1024 else 2
+        check(pipe.programs.launches(key) == {"fps": want_fps, "ball_query": 2, "fused_sa": 0},
+              f"{name}: the program of {key} records {pipe.programs.launches(key)}")
         got_counts = (fps.launches - f0, ball_query_multi.launches - b0)
-        check(got_counts == (want_fps, 2),
-              f"{name}: launches fps/ball_query {got_counts}, want ({want_fps}, 2)")
-        outputs.append((name, clusters, out))
+        check(got_counts == (want_fps * runs, 2 * runs),
+              f"{name}: launches fps/ball_query {got_counts}, want ({want_fps}, 2) a run, {runs} runs")
+        outputs.append((name, clusters, out, key, runs))
     launches = {"fps": fps.launches, "ball_query": ball_query_multi.launches}
     for k in kernels:
         k["launches"] = launches[k["name"]]
         check(k["launches"] > 0, f"{k['name']} never launched on the main path")
+    check(outputs[-1][3] == outputs[1][3] and outputs[-1][4] == 1,
+          f"the second request of bucket {outputs[1][3]} was not a replay")
+    # the card's trace of one replay runs the kernels its capture recorded
+    _, traced_clusters, _, traced_key, _ = outputs[1]
+    with uncounted():
+        traced = profiled_launches(lambda: pipe.infer_clusters(traced_clusters))
+    recorded = pipe.programs.launches(traced_key)
+    check(traced == recorded == {"fps": 3, "ball_query": 2, "fused_sa": 0},
+          f"the profiler saw {traced} in a replay of {traced_key}, its capture recorded {recorded}")
+    log(f"  one replay of {traced_key} under torch.profiler: {json.dumps(traced)}, as its capture recorded")
 
-    for name, clusters, out in outputs:
+    report = {"requests": {}, "profiled_replay": {"bucket": list(traced_key), "launches": traced}}
+    for name, clusters, out, key, runs in outputs:
         K = clusters.shape[0]
         check(out["rotation_matrix"].shape == (K, 3, 3) and out["translation"].shape == (K, 3),
               f"{name}: output shapes")
         check(all(np.isfinite(v).all() for v in out.values()), f"{name}: non-finite output")
+        with uncounted():
+            gap = output_gap(out, eager_request(pipe, clusters), name)
         compare(f"{name} vs cpu", out, cpu.infer_clusters(clusters), float_keys)
-        log(f"  {name} K={K} M={clusters.shape[1]}: matches the CPU pipeline, "
-            f"classes {out['pred_class'].tolist()}")
+        report["requests"][name] = {"bucket": list(key), "runs": runs, "eager_gap": gap}
+        log(f"  {name} K={K} M={clusters.shape[1]}: program {key}, {runs} runs; the eager run on the card "
+            f"within {gap:.3g}; matches the CPU pipeline, classes {out['pred_class'].tolist()}")
+    check(not np.array_equal(outputs[-1][2]["log_probs"], outputs[1][2]["log_probs"][:3]),
+          "the second request of one bucket gave the first's outputs")
     compare("replay vs jax", outputs[0][2], fix,
             ("rotation_deg", "sign_prob", "translation", "width"))
     log("  replay: matches the recorded JAX outputs")
@@ -852,23 +1052,17 @@ def serving_phase(pipe, cpu, kernels: list[dict]) -> dict:
     latency = {}
     for K in (4, 32):
         clusters = blobs(rng, K, 2048)
-        for _ in range(2):
-            pipe.infer_clusters(clusters)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        times = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            pipe.infer_clusters(clusters)
-            torch.cuda.synchronize()
-            times.append(1e3 * (time.perf_counter() - t0))
-        latency[f"K={K} M=2048"] = {
-            "median_ms": statistics.median(times), "min_ms": min(times),
-            "max_ms": max(times),
-            "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20,
-        }
-        log(f"  latency K={K} M=2048: {json.dumps(latency[f'K={K} M=2048'])}")
-    return latency
+        for what in ("replay", "eager", "replay", "eager"):                # in turns
+            if what == "replay":
+                row = timed(lambda: pipe.infer_clusters(clusters), 10)
+            else:
+                with uncounted():
+                    row = timed(lambda: eager_request(pipe, clusters), 10)
+            latency.setdefault(f"K={K} M=2048 {what}", []).append(row)
+            log(f"  latency K={K} M=2048 {what}: {json.dumps(row)}")
+    report["programs"] = programs_line("serving", pipe.programs)
+    report["latency"] = latency
+    return report
 
 
 # model -> (experiment directory under log/ or None for seeded weights, FPS and
@@ -1046,17 +1240,19 @@ def eval_phase(device, kernels: list[dict]) -> dict:
     cpu = GraspPipeline.from_random(cfg, seed=7, device="cpu")
     clusters = blobs(np.random.default_rng(6), 4, 1600)
     before = (fps.launches, ball_query_multi.launches)
-    out = pipe.infer_clusters(clusters)
-    torch.cuda.synchronize()
+    out, runs = runs_of(pipe.programs, lambda: pipe.infer_clusters(clusters))
     got = (fps.launches - before[0], ball_query_multi.launches - before[1])
-    check(got == (3, 2), f"MSG-classifier request: fps/ball_query launches {got}, want (3, 2)")
+    check(got == (3 * runs, 2 * runs), f"MSG-classifier request: fps/ball_query launches {got}, want (3, 2) "
+          f"a run of its program, {runs} runs")
+    with uncounted():
+        gap = output_gap(out, eager_request(pipe, clusters), "MSG-classifier request")
     want = cpu.infer_clusters(clusters)
     check(np.array_equal(out["pred_class"], want["pred_class"]), "MSG-classifier request: classes")
     for key in ("log_probs", "rotation_deg", "rotation_matrix", "sign_prob", "translation", "width"):
         check(np.allclose(out[key], want[key], rtol=TOL, atol=TOL),
               f"MSG-classifier request: {key} differs from the CPU pipeline")
-    log(f"  request with classifier=pointnet2_cls_msg (seeded weights): matches the CPU pipeline, "
-        f"classes {out['pred_class'].tolist()}")
+    log(f"  request with classifier=pointnet2_cls_msg (seeded weights): the eager run on the card within "
+        f"{gap:.3g}; matches the CPU pipeline, classes {out['pred_class'].tolist()}")
     return results
 
 
@@ -1467,10 +1663,11 @@ def bf16_phase(device, kernels: list[dict]) -> dict:
     rng = np.random.default_rng(9)
     clusters = blobs(rng, 4, 1600)
     f0, b0 = fps.launches, ball_query_multi.launches
-    out = pipe.infer_clusters(clusters)
-    torch.cuda.synchronize()
+    out, runs = runs_of(pipe.programs, lambda: pipe.infer_clusters(clusters))
     got = (fps.launches - f0, ball_query_multi.launches - b0)
-    check(got == (3, 2), f"bf16 request: fps/ball_query launches {got}, want (3, 2)")
+    check(got == (3 * runs, 2 * runs), f"bf16 request: fps/ball_query launches {got}, want (3, 2) a run, {runs} runs")
+    with uncounted():
+        gap = output_gap(out, eager_request(pipe, clusters), "bf16 request")
     want = cpu_pipe.infer_clusters(clusters)
     check(all(v.dtype == np.float32 for k, v in out.items() if k != "pred_class"), "bf16 request: outputs not f32")
     top2 = np.sort(want["log_probs"], -1)[:, -2:]
@@ -1481,16 +1678,21 @@ def bf16_phase(device, kernels: list[dict]) -> dict:
     for k in worst:             # one bfloat16 ulp relative, BF16_OUT_TOL absolute
         check(np.allclose(out[k], want[k], rtol=2.0 ** -7, atol=BF16_OUT_TOL),
               f"bf16 request: {k} differs from the CPU by {worst[k]}")
-    log(f"  bf16 request K=4 M=1600: classes {out['pred_class'].tolist()} (CPU {want['pred_class'].tolist()}), "
-        f"max abs diff from the CPU {json.dumps(worst)}")
+    log(f"  bf16 request K=4 M=1600: the eager run on the card within {gap:.3g}; classes "
+        f"{out['pred_class'].tolist()} (CPU {want['pred_class'].tolist()}), max abs diff from the CPU "
+        f"{json.dumps(worst)}")
     latency = {}
     pipe32 = GraspPipeline.from_checkpoints(PipelineConfig(), paths)
     for K in (4, 32):
         c = blobs(rng, K, 2048)
         for what, p in (("float32", pipe32), ("bfloat16", pipe)):          # in turns
             latency[f"K={K} M=2048 {what}"] = timed(lambda: p.infer_clusters(c), 10)
-            log(f"  latency {what} K={K} M=2048: {json.dumps(latency[f'K={K} M=2048 {what}'])}")
-    report["request"] = {"max_abs_diff_vs_cpu": worst, "latency": latency}
+            with uncounted():
+                latency[f"K={K} M=2048 {what} eager"] = timed(lambda: eager_request(p, c), 10)
+            for w in (what, f"{what} eager"):
+                log(f"  latency {w} K={K} M=2048: {json.dumps(latency[f'K={K} M=2048 {w}'])}")
+    report["request"] = {"max_abs_diff_vs_cpu": worst, "eager_gap": gap, "latency": latency,
+                         "programs": programs_line("bf16", pipe.programs)}
     launches = {"fps": fps.launches, "ball_query": ball_query_multi.launches}
     check(launches["fps"] > 0 and launches["ball_query"] > 0, "the bf16 path launched no kernel")
     for k in kernels:
@@ -1505,9 +1707,13 @@ FIXTURE_CFG = dict(clip_range=(-1.0, 0.0), min_points=200, radius_nb_points=60, 
 FRAME_CFG = dict(clip_range=(-1.0, 0.0), min_points=500, eps=0.03)
 FRAME_BUDGET_MS = 1000.0 / 30.0          # the reference camera's 30 frames/s
 # (label, table points) of the frames served end to end, each drawn with
-# FRAME_SEEDS seeds; stream replays them STREAM_REPEATS times
+# FRAME_SEEDS seeds
 FRAMES = (("28k", 20000), ("300k", 292000))
-FRAME_SEEDS, STREAM_REPEATS = 4, 3
+FRAME_SEEDS = 4
+# a camera's stream of one scene: CAMERA_FRAMES distinct frames (2 s at 30
+# frames/s) a run, each with depth noise of CAMERA_DEPTH_SD m and a share of
+# its points drawn from [0, CAMERA_MAX_DROPOUT) lost (pixels without depth)
+CAMERA_FRAMES, CAMERA_DEPTH_SD, CAMERA_MAX_DROPOUT = 60, 0.001, 0.05
 
 
 def synthetic_frame(n_table: int, seed: int = 0) -> np.ndarray:
@@ -1530,9 +1736,93 @@ def synthetic_frame(n_table: int, seed: int = 0) -> np.ndarray:
     return np.concatenate([table, *objects, far]).astype(np.float32)
 
 
+def camera_frames(n_table: int, seed: int, first: int, count: int) -> list[np.ndarray]:
+    """Frames ``first`` to ``first + count`` of a camera that looks at the
+    scene ``synthetic_frame(n_table, seed)``: each frame the scene with its
+    own depth noise (z, CAMERA_DEPTH_SD) and its own share of points lost,
+    so that the point counts of the scene and of its clusters vary from
+    frame to frame as a camera's do."""
+    base = synthetic_frame(n_table, seed)
+    frames = []
+    for i in range(first, first + count):
+        rng = np.random.default_rng((seed, i))
+        frame = base[rng.random(len(base)) >= rng.uniform(0, CAMERA_MAX_DROPOUT)]
+        frame[:, 2] += rng.normal(0, CAMERA_DEPTH_SD, len(frame)).astype(np.float32)
+        frames.append(frame)
+    return frames
+
+
+def eager_frame(pipe, frame):
+    """``__call__``'s work on the card with the scene program's function run
+    eagerly: (grasps or None, the scene program's key or None, the JAX
+    package's key for the scene, with the scene rounded up to 2048 points
+    in place of the pipeline's buffer)."""
+    from pointnet_like_pose_estimation_tpu_torch.pipeline import preprocess as pp
+
+    cfg = pipe.cfg
+    pts = pp.clip_distance(frame, cfg.clip_range, cfg.clip_axis)
+    if len(pts) < cfg.min_points:
+        return None, None, None
+    cleaned = pp.clean_scene(pts, cfg.plane_threshold, cfg.plane_iterations, cfg.radius_nb_points, cfg.radius,
+                             device=pipe.device)
+    labels = pp.dbscan(cleaned, cfg.eps, cfg.min_points) if len(cleaned) >= cfg.min_points else None
+    if labels is None or labels.max() < 0:
+        return None, None, None
+    key = pipe._scene_call(cleaned, labels)[0]
+    return eager_scene(pipe, cleaned, labels), key, key[:4] + (pp._round_up(len(cleaned), 2048),) + key[5:]
+
+
+def camera_run(pipe, frames, label: str) -> dict:
+    """``frames`` of one camera through ``pipe`` one ``__call__`` at a time:
+    each held against the eager run on the card (None where that finds no
+    cluster) with its launches its program's per run times its runs; the
+    host latency of each call, captures included, and the captures."""
+    import torch
+
+    from pointnet_like_pose_estimation_tpu_torch.kernels.ball_group import ball_query_multi
+    from pointnet_like_pose_estimation_tpu_torch.kernels.fps import fps
+
+    ms, captured, keys, jax_keys, lost, gaps = [], [], set(), set(), 0, []
+    for i, frame in enumerate(frames):
+        c0, f0, b0 = pipe.programs.captures, fps.launches, ball_query_multi.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, runs = runs_of(pipe.programs, lambda: pipe(frame))
+        ms.append(1e3 * (time.perf_counter() - t0))
+        got = (fps.launches - f0, ball_query_multi.launches - b0)
+        if pipe.programs.captures > c0:
+            captured.append(i)
+        with uncounted():
+            want, key, jax_key = eager_frame(pipe, frame)
+        check((out is None) == (want is None), f"camera {label} frame {i}: served {out is not None}, "
+                                               f"the eager run {want is not None}")
+        if out is None:
+            lost += 1
+            continue
+        keys.add(key)
+        jax_keys.add(jax_key)
+        want_fps = 4 if out["clusters"].shape[1] > pipe.cfg.num_points else 3
+        check(got == (want_fps * runs, 2 * runs),
+              f"camera {label} frame {i}: fps/ball_query launches {got}, want ({want_fps}, 2) a run, {runs} runs")
+        gaps.append(output_gap(out, want, f"camera {label} frame {i}"))
+    steady = [t for i, t in enumerate(ms) if i not in captured]
+    return {"frames": len(frames), "served": len(frames) - lost, "lost": lost,
+            "captures": len(captured), "captures_per_frame": len(captured) / len(frames),
+            "frames_that_captured": captured, "program_keys": len(keys), "jax_program_keys": len(jax_keys),
+            "scene_points": pipe.scene_points, "eager_gap": max(gaps, default=0.0),
+            "ms": {"median": float(np.median(ms)), "p90": float(np.percentile(ms, 90)), "max": max(ms),
+                   "median_without_a_capture": float(np.median(steady)) if steady else None,
+                   "captures": [ms[i] for i in captured]}}
+
+
+STAGES = ("clip", "clean", "dbscan", "infer", "infer_eager")
+
+
 def stage_ms(pipe, frame) -> np.ndarray:
     """Host ms of a frame's clip, clean, DBSCAN and inference on ``pipe``
-    (the radius clean), each ended by a synchronize."""
+    (the radius clean; the inference a replay of the scene program), each
+    ended by a synchronize; then the inference's function run eagerly on
+    the card, uncounted (STAGES)."""
     import torch
 
     from pointnet_like_pose_estimation_tpu_torch.pipeline import preprocess as pp
@@ -1547,8 +1837,11 @@ def stage_ms(pipe, frame) -> np.ndarray:
     t.append(time.perf_counter())
     lab = pp.dbscan(c, cfg.eps, cfg.min_points)
     t.append(time.perf_counter())
-    with torch.inference_mode():
-        pipe._infer_scene(c, lab)
+    pipe._infer_scene(c, lab)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    with uncounted():
+        eager_scene(pipe, c, lab)
     torch.cuda.synchronize()
     t.append(time.perf_counter())
     return np.diff(t) * 1e3
@@ -1603,12 +1896,11 @@ def frame_phase(device, kernels: list[dict]) -> dict:
                                       pp.draw_ransac(len(pts), cfg.plane_iterations), cfg.plane_threshold)
             lost = not bool(normal.any())               # a degenerate triple won (ROADMAP.md Queue 3)
             f0, b0 = fps.launches, ball_query_multi.launches
-            out = pipe(frame)
-            torch.cuda.synchronize()
+            out, runs = runs_of(pipe.programs, lambda: pipe(frame))
             got = (fps.launches - f0, ball_query_multi.launches - b0)
             want = cpu_pipe(frame)
             if lost:
-                check(out is None and want is None and got == (0, 0),
+                check(out is None and want is None and got == (0, 0) and runs == 0,
                       f"frame {label} seed {seed}: the best plane is degenerate, yet the frame was served")
                 rows.append({"seed": seed, "clipped": len(pts), "served": False})
                 log(f"  frame {label} seed {seed}: lost, as the reference loses it, to a RANSAC triple that "
@@ -1618,21 +1910,25 @@ def frame_phase(device, kernels: list[dict]) -> dict:
                   f"frame {label} seed {seed}: clusters {None if out is None else out['clusters'].shape} on the "
                   f"card, {None if want is None else want['clusters'].shape} on the CPU")
             want_fps = 4 if out["clusters"].shape[1] > cfg.num_points else 3
-            check(got == (want_fps, 2), f"frame {label}: fps/ball_query launches {got}, want ({want_fps}, 2)")
+            check(got == (want_fps * runs, 2 * runs),
+                  f"frame {label}: fps/ball_query launches {got}, want ({want_fps}, 2) a run, {runs} runs")
             check(np.array_equal(out["clusters"], want["clusters"]), f"frame {label}: clusters differ from the CPU")
             check(np.array_equal(out["pred_class"], want["pred_class"]), f"frame {label}: classes differ")
             for k in float_keys:
                 check(np.allclose(out[k], want[k], rtol=TOL, atol=TOL), f"frame {label}: {k} differs from the CPU")
             args = (pts, cfg.plane_threshold, cfg.plane_iterations, cfg.radius_nb_points, cfg.radius)
-            cleaned = pp.clean_scene(*args)
+            with uncounted():
+                cleaned = pp.clean_scene(*args)
+                labels = pp.dbscan(cleaned, cfg.eps, cfg.min_points)
+                gap = output_gap(out, eager_scene(pipe, cleaned, labels), f"frame {label} seed {seed}")
             check(np.array_equal(cleaned, pp.clean_scene(*args, device="cpu")),
                   f"frame {label}: the cleaned points on the card are not the CPU's bit for bit")
-            labels = pp.dbscan(cleaned, cfg.eps, cfg.min_points)
             rows.append({"seed": seed, "clipped": len(pts), "served": True, "cleaned": len(cleaned),
                          "cluster_sizes": np.bincount(labels[labels >= 0]).tolist(),
+                         "program": list(pipe._scene_call(cleaned, labels)[0]), "runs": runs, "eager_gap": gap,
                          "classes": out["pred_class"].tolist(), "fps_and_ball_query_launches": list(got)})
             log(f"  frame {label} seed {seed}: matches the CPU (classes {out['pred_class'].tolist()}, "
-                f"cleaned points equal bit for bit); {json.dumps(rows[-1])}")
+                f"cleaned points equal bit for bit) and the eager run on the card; {json.dumps(rows[-1])}")
             served = served or (frame, out)
         check(served is not None, f"frame {label}: no frame served")
         frame, out = served
@@ -1643,23 +1939,38 @@ def frame_phase(device, kernels: list[dict]) -> dict:
             want = pipe(f)
             check((r is None) == (want is None) and (r is None or all(np.array_equal(r[k], want[k]) for k in want)),
                   f"frame {label}: stream differs from __call__")
-        stream = frames * STREAM_REPEATS
-        window_s, n_served = [], 0
-        for _ in range(2):                                  # two windows over the same frames
+        programs = programs_line(f"frame {label}", pipe.programs)
+
+        # a camera on the first served scene, from a fresh pipeline: every frame distinct
+        scene_seed = next(r["seed"] for r in rows if r["served"])
+        cam = GraspPipeline.from_checkpoints(PipelineConfig(**FRAME_CFG), paths)
+        camera = camera_run(cam, camera_frames(n_table, scene_seed, 0, CAMERA_FRAMES), label)
+        camera["scene_seed"] = scene_seed
+        log(f"  camera {label}, scene seed {scene_seed}, {CAMERA_FRAMES} distinct frames from a fresh pipeline, "
+            f"each held against the eager run on the card: {json.dumps(camera)}")
+        window_s, n_served, n_frames, window_captures = [], 0, 0, []
+        for w in (1, 2):                                    # two windows of new frames of the camera
+            stream = camera_frames(n_table, scene_seed, w * CAMERA_FRAMES, CAMERA_FRAMES)
+            c0 = cam.programs.captures
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            n_served += sum(r is not None for r in pipe.stream(iter(stream)))
+            n_served += sum(r is not None for r in cam.stream(iter(stream)))
             torch.cuda.synchronize()
             window_s.append(time.perf_counter() - t0)
-        n_frames = 2 * len(stream)
+            window_captures.append(cam.programs.captures - c0)
+            n_frames += len(stream)
         row = {"frames": rows, "raw_points": len(frame),
-               "stage_ms": dict(zip(("clip", "clean", "dbscan", "infer"), split.tolist())), "call": total,
-               "stream_ms_per_frame": [1e3 * w / len(stream) for w in window_s],
+               "stage_ms": dict(zip(STAGES, split.tolist())), "call": total, "programs": programs,
+               "camera": camera, "camera_programs": programs_line(f"camera {label}", cam.programs),
+               "stream_captures": window_captures,
+               "stream_ms_per_frame": [1e3 * w / CAMERA_FRAMES for w in window_s],
                "stream_served_frames_per_s": n_served / sum(window_s),
                "stream_frames": n_frames, "stream_served": n_served, "stream_lost": n_frames - n_served,
                "budget_ms": FRAME_BUDGET_MS}
         report["frames"][label] = row
-        log(f"  frame {label}: latency and stream {json.dumps({k: v for k, v in row.items() if k != 'frames'})}")
+        log(f"  frame {label}: latency and stream "
+            f"{json.dumps({k: v for k, v in row.items() if k not in ('frames', 'camera')})}")
+        del cam
 
     launches = {"fps": fps.launches, "ball_query": ball_query_multi.launches}
     check(launches["fps"] > 0 and launches["ball_query"] > 0, "the frame path launched no kernel")
@@ -1868,6 +2179,9 @@ def data_phase(device, pipe, kernels: list[dict]) -> dict:
         check(out["clusters"].shape == want["clusters"].shape == (2, min(sizes), 3),
               f"near frame: clusters {out['clusters'].shape} on the card, {want['clusters'].shape} on the CPU")
         check(np.array_equal(out["clusters"], want["clusters"]), "near frame: clusters differ from the CPU")
+        with uncounted():
+            output_gap({k: v for k, v in out.items() if k != "clusters"}, eager_request(near, out["clusters"]),
+                       "near frame, plane only")
         check(np.array_equal(out["pred_class"], want["pred_class"]), "near frame: classes differ from the CPU")
         for k in float_keys:
             check(np.allclose(out[k], want[k], rtol=TOL, atol=TOL), f"near frame: {k} differs from the CPU")
@@ -1875,18 +2189,34 @@ def data_phase(device, pipe, kernels: list[dict]) -> dict:
         break
     check(served is not None, "near frame: no seed served")
     seed, frame, sizes, out, card_ms, cpu_ms = served
+    truncation = pp._TRUNCATION_PROGRAMS[torch.device("cuda")]
+    check(any(key[2] > MAX_SHARED_POINTS for key in truncation.keys()),
+          f"near frame, plane only: no truncation program over the cube ({truncation.keys()})")
     warm = timed(lambda: near(frame), 3)
     full = GraspPipeline.from_checkpoints(PipelineConfig(**FRAME_CFG), paths)            # the radius clean
     got = full(frame)
     torch.cuda.synchronize()
     check(got is not None and got["clusters"].shape[0] == 2, "near frame, radius clean: not served with 2 clusters")
+    with uncounted():
+        fc = full.cfg
+        cleaned = pp.clean_scene(pp.clip_distance(frame, fc.clip_range, fc.clip_axis), fc.plane_threshold,
+                                 fc.plane_iterations, fc.radius_nb_points, fc.radius)
+        labels = pp.dbscan(cleaned, fc.eps, fc.min_points)
+        gap = output_gap(got, eager_scene(full, cleaned, labels), "near frame, radius clean")
+    key = full._scene_call(cleaned, labels)[0]
+    want_fps = 4 if key[-1] == "fps" else 3          # truncation, resampling (fps branch), SA1, SA2
+    check(full.programs.launches(key)["fps"] == want_fps and fps_path(key[2], 3, key[1]) == "cluster",
+          f"near frame, radius clean: the scene program {key} records {full.programs.launches(key)}, "
+          f"its truncation FPS the {fps_path(key[2], 3, key[1])} path")
     split = np.median(np.array([stage_ms(full, frame) for _ in range(3)]), axis=0)
     report["near_frame"] = {
         "seed": seed, "raw_points": len(frame), "cluster_sizes": sizes, "classes": out["pred_class"].tolist(),
         "first_call_ms_plane_only": card_ms, "cpu_first_call_ms_plane_only": cpu_ms,
         "call_ms_plane_only": warm,
-        "radius_clean_classes": got["pred_class"].tolist(),
-        "stage_ms": dict(zip(("clip", "clean", "dbscan", "infer"), split.tolist()))}
+        "radius_clean_classes": got["pred_class"].tolist(), "radius_clean_program": list(key),
+        "radius_clean_eager_gap": gap, "stage_ms": dict(zip(STAGES, split.tolist())),
+        "programs": programs_line("near frame, radius clean", full.programs),
+        "truncation_programs": programs_line("truncation (cluster_point)", truncation)}
     log(f"  near frame seed {seed}: clusters of {sizes} points kept; card equals the CPU (classes "
         f"{out['pred_class'].tolist()}, floats within {TOL}); {json.dumps(report['near_frame'])}")
 
@@ -2410,7 +2740,7 @@ def main() -> int:
     pipe = GraspPipeline.from_checkpoints(PipelineConfig(), paths)        # default: cuda
     check(pipe.device.type == "cuda", "the pipeline did not default to the card")
     cpu = GraspPipeline.from_checkpoints(PipelineConfig(), paths, device="cpu")
-    latency = serving_phase(pipe, cpu, kernels)
+    serving = serving_phase(pipe, cpu, kernels)
 
     log("fused set-abstraction kernel phase")
     msg_cpu = seeded_model("pointnet2_cls_msg", 5)
@@ -2421,11 +2751,11 @@ def main() -> int:
                 build_pn2_ssg_infer(cpu.models["classifier"], device="cpu"), pipe.models["classifier"]),
         "MSG": (build_pn2_msg_infer(msg), build_pn2_msg_infer(msg_cpu, device="cpu"), msg),
     }
-    xyz = normalize_cloud(pipe._resample(blobs(np.random.default_rng(3), 32, 2048)))
+    xyz = normalize_cloud(resampled(pipe, blobs(np.random.default_rng(3), 32, 2048)))
     kernels.append(fused_sa_phase(device, executors, xyz))
 
     log("fast-infer phase")
-    latency.update(fast_infer_phase(pipe, executors, kernels))
+    fast_infer = fast_infer_phase(pipe, executors, kernels)
 
     log("eval phase")
     evals = eval_phase(device, kernels)
@@ -2448,7 +2778,7 @@ def main() -> int:
     check(not STEP_FAILURES, "train steps: " + " | ".join(STEP_FAILURES))
     log(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     log(card)
-    print(json.dumps({"kernels": kernels, "latency": latency, "eval": evals, "train": training,
+    print(json.dumps({"kernels": kernels, "serving": serving, "fast_infer": fast_infer, "eval": evals, "train": training,
                       "bf16": bf16, "frame": frames, "data": data, "parallel": parallel, "card": card}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

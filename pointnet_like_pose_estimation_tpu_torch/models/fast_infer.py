@@ -15,6 +15,12 @@ statistics. FPS runs on the port's FPS kernel and the centroids are
 gathered with ``index_points``; SA3 (group all) and the head stay plain
 ``torch.matmul``. The radii, neighbour counts and widths are read off the
 model. Inference only: the folded weights hold no BN state to update.
+
+Each forward is one compiled program per input shape (B, N), as the JAX
+package's executors are one ``jax.jit`` each: on a card a CUDA graph
+captured at the first call of that shape and replayed, on the CPU the same
+function called directly (``utils/programs.py``; ``fwd.programs`` is the
+executor's cache, ``fwd.body`` the function it captures).
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from pointnet_like_pose_estimation_tpu_torch.nn import (
 )
 from pointnet_like_pose_estimation_tpu_torch.ops import farthest_point_sample, index_points
 from pointnet_like_pose_estimation_tpu_torch.utils.device import resolve_device
+from pointnet_like_pose_estimation_tpu_torch.utils.programs import ProgramCache
 
 
 def fold_dense_bn(dense: nn.Linear, bn: nn.BatchNorm1d):
@@ -120,9 +127,7 @@ def _build(model: nn.Module, kind: type, device):
     sa3_w = to_dev(_fold_mlp(model.sa3.mlp))
     head_w = to_dev(_fold_head(model.head))
 
-    @torch.inference_mode()
-    def fwd(points):
-        p = torch.as_tensor(points, dtype=torch.float32, device=dev).contiguous()
+    def body(p):
         ptsfeat = p
         for S, radii, ks, widths, weights in levels:
             cent = index_points(p, farthest_point_sample(p, S))
@@ -132,6 +137,14 @@ def _build(model: nn.Module, kind: type, device):
         log_probs = torch.log_softmax(logits, dim=-1)
         return log_probs, torch.argmax(log_probs, dim=-1)
 
+    programs = ProgramCache(dev)
+
+    def fwd(points):
+        p = torch.as_tensor(points, dtype=torch.float32)
+        # the program's own outputs, which its next replay overwrites: the caller's are copies
+        return tuple(t.clone() for t in programs(("executor", *p.shape), body, (p,)))
+
+    fwd.programs, fwd.body = programs, body
     return fwd
 
 

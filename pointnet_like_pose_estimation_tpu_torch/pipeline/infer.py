@@ -11,19 +11,30 @@ predicted class as a one-hot onto every point, and runs the rotation, sign,
 translation and width heads, in ``PipelineConfig.dtype``; every float
 output is float32.
 
-The JAX package pads the cluster count to a multiple of 4, the cluster
-size to a multiple of 256 and the scene to a multiple of 2048 so that jit
-reuses its compiled programs, and fuses the truncation FPS, the resampling
-and the five models of a scene into one program. PyTorch runs eagerly, so
-the port drops the pads and runs the same steps in order: the pads
-duplicate a cluster's first point, which FPS from it never picks while real
-points remain, and eval-mode BatchNorm treats every cluster on its own, so
-the results are those of ``cluster_point`` -> ``infer_clusters``.
+Each request is one compiled program, as in the JAX package: on a card a
+CUDA graph captured once per shape bucket and replayed
+(``utils/programs.py``), on the CPU the same function called directly. The
+buckets are the JAX package's. ``infer_clusters`` pads the cluster count K
+to a multiple of 4 with copies of cluster 0 and, when the clusters are
+larger than ``num_points``, their size M to a multiple of 256 with each
+cluster's first point, and runs the resampling and the five models as one
+program per (K, M) bucket. ``__call__`` and ``stream`` run everything after
+DBSCAN as one program (``_scene``: the gather of the clusters, their
+truncation by FPS, the resampling and the five models), with K to a
+multiple of 4 and the cluster size to 256, as in the JAX package. The
+cloud goes into a buffer that grows in steps of 2048 points and never
+shrinks (``scene_points``), where the JAX package rounds each scene up to
+2048 points: a frame whose point count falls in a smaller step than the
+last one's reuses its program. The smallest cluster's size is a device
+scalar, so it never forces another capture either. The pads change no real cluster's result: FPS from a cluster's
+first point never picks a copy of it while real points remain, and
+eval-mode BatchNorm treats every cluster on its own.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -45,6 +56,7 @@ from pointnet_like_pose_estimation_tpu_torch.utils.checkpoint import (
     load_flax_checkpoint,
 )
 from pointnet_like_pose_estimation_tpu_torch.utils.device import resolve_device
+from pointnet_like_pose_estimation_tpu_torch.utils.programs import ProgramCache
 
 MODEL_KEYS = ("classifier", "rotation", "sign", "translation", "width")
 
@@ -75,6 +87,13 @@ class PipelineConfig:
     dtype: str = "float32"
 
 
+def request_bucket(K: int, M: int, num_points: int) -> tuple[int, int]:
+    """The JAX package's bucket of a request of K clusters of M points:
+    K to a multiple of 4, and M, when above ``num_points`` (the FPS
+    resampling), to a multiple of 256."""
+    return pp._round_up(K, 4), pp._round_up(M, 256) if M > num_points else M
+
+
 def _load_weights(path: str) -> dict:
     """A ``state_dict`` from the port's ``*.pt`` or the JAX package's flax
     ``*.msgpack``."""
@@ -85,7 +104,8 @@ def _load_weights(path: str) -> dict:
 
 class GraspPipeline:
     """The five models of a grasp request, on one device, computing in
-    ``cfg.dtype`` (set on their Linear layers)."""
+    ``cfg.dtype`` (set on their Linear layers), and the request and scene
+    programs that run them (``programs``)."""
 
     def __init__(self, cfg: PipelineConfig, models: dict[str, nn.Module], device="cuda"):
         self.device = resolve_device(device, "GraspPipeline")
@@ -94,6 +114,10 @@ class GraspPipeline:
             raise KeyError(f"GraspPipeline: missing models {sorted(missing)}")
         self.cfg = cfg
         self.models = {k: set_compute_dtype(models[k], cfg.dtype).to(self.device).eval() for k in MODEL_KEYS}
+        # the request and scene programs, one per bucket, on one memory pool
+        self.programs = ProgramCache(self.device)
+        # the scene program's cloud buffer, in points: the largest scene so far rounded up to 2048
+        self.scene_points = 0
 
     @staticmethod
     def _make(cfg: PipelineConfig, key: str) -> nn.Module:
@@ -146,16 +170,60 @@ class GraspPipeline:
             return None
         return pp.cluster_point(pts, cfg.eps, cfg.min_points, device=dev)
 
+    def _scene(self, xyz: torch.Tensor, idx_batch: torch.Tensor, min_size: torch.Tensor, *,
+               s_bucket: int, branch: str):
+        """The scene program (JAX ``_scene_infer_fn``): ``[p_bucket, 3]``
+        cleaned points, ``[k_bucket, n_bucket]`` cluster gather indices and
+        the smallest cluster's size (a device scalar) -> (grasp dict, global
+        indices of the truncated clusters ``[k_bucket, s_bucket]``). FPS
+        truncates every cluster to ``s_bucket`` points; the positions from
+        ``min_size`` on are replaced by the cluster's start point, which
+        holds distance 0 and loses every first-index tie, so the resampling
+        FPS selects as if the clusters were cut to ``min_size``."""
+        clusters = xyz[idx_batch]                                # [K_b, n_bucket, 3]
+        cidx = farthest_point_sample(clusters, s_bucket).long()  # [K_b, s_bucket]
+        trunc = index_points(clusters, cidx)
+        keep = torch.arange(s_bucket, device=xyz.device) < min_size
+        masked = torch.where(keep[None, :, None], trunc, trunc[:, :1])
+        n = self.cfg.num_points
+        if branch == "fps":                                      # min_size > n
+            xin = index_points(masked, farthest_point_sample(masked, n))
+        elif branch == "exact":                                  # min_size == n
+            xin = trunc[:, :n]
+        else:                                                    # min_size < n: tile
+            xin = torch.index_select(masked, 1, torch.arange(n, device=xyz.device) % min_size)
+        return self._infer(xin), torch.gather(idx_batch, 1, cidx)
+
+    def _scene_call(self, pts: np.ndarray, labels: np.ndarray):
+        """The scene program's ``(key, fn, inputs)`` for a cleaned cloud and
+        its DBSCAN labels (at least one cluster), with the cluster count and
+        the smallest cluster's size: the JAX package's buckets, the index
+        table built on the host (``preprocess.bucketed_groups``), the cloud
+        padded with zeros to ``scene_points``, grown first to this cloud's
+        size rounded up to 2048 where it is smaller; ``branch`` resamples
+        the truncated clusters by FPS above ``num_points``, takes them as
+        they are at it and tiles them below."""
+        groups = pp.cluster_groups(labels)
+        idx, sb = pp.bucketed_groups(groups)
+        min_size, n = min(map(len, groups)), self.cfg.num_points
+        branch = "fps" if min_size > n else ("exact" if min_size == n else "tile")
+        self.scene_points = max(self.scene_points, pp._round_up(len(pts), 2048))
+        xyz = np.zeros((self.scene_points, 3), np.float32)
+        xyz[:len(pts)] = pts[:, :3]
+        fn = functools.partial(self._scene, s_bucket=sb, branch=branch)
+        inputs = (torch.from_numpy(xyz), torch.from_numpy(idx), torch.tensor(min_size))
+        return ("scene", *idx.shape, sb, len(xyz), branch), fn, inputs, len(groups), min_size
+
     def _infer_scene(self, pts: np.ndarray, labels: np.ndarray) -> dict[str, np.ndarray] | None:
         """A cleaned cloud and its DBSCAN labels -> the scene's grasps, with
-        ``clusters`` (the truncated clusters, all channels): the clusters
-        truncated to the smallest by FPS, resampled and served on the device.
-        None when DBSCAN found no cluster."""
+        ``clusters`` (the truncated clusters, all channels), through the
+        scene program. None when DBSCAN found no cluster."""
         if labels.max() < 0:
             return None
-        trunc, idx = pp.truncate_clusters(pp._xyz(pts, self.device), pp.cluster_groups(labels))
-        res = {k: v.cpu().numpy() for k, v in self._infer(self._resample_tensor(trunc)).items()}
-        res["clusters"] = pts[idx.cpu().numpy()]
+        key, fn, inputs, K, min_size = self._scene_call(pts, labels)
+        out, cglobal = self.programs(key, fn, inputs)
+        res = {k: v[:K].cpu().numpy() for k, v in out.items()}
+        res["clusters"] = pts[cglobal[:K, :min_size].cpu().numpy()]
         return res
 
     def __call__(self, points: np.ndarray) -> dict[str, np.ndarray] | None:
@@ -189,7 +257,8 @@ class GraspPipeline:
     # --- clusters ---------------------------------------------------------------------------
 
     def _resample_tensor(self, xyz: torch.Tensor) -> torch.Tensor:
-        """``[K, M, 3]`` device clusters -> ``[K, num_points, 3]``."""
+        """``[K, M, 3]`` device clusters -> ``[K, num_points, 3]``: FPS from
+        the first point when M is larger, tiling when smaller."""
         K, M, _ = xyz.shape
         n = self.cfg.num_points
         if M == n:
@@ -198,10 +267,23 @@ class GraspPipeline:
             return index_points(xyz, farthest_point_sample(xyz, n))
         return xyz.repeat(1, -(-n // M), 1)[:, :n]
 
-    def _resample(self, clusters: np.ndarray) -> torch.Tensor:
-        """``[K, M, C]`` host clusters -> ``[K, num_points, 3]`` on the device."""
-        xyz = torch.as_tensor(np.ascontiguousarray(clusters[..., :3], np.float32)).to(self.device)
-        return self._resample_tensor(xyz)
+    def _request(self, xyz: torch.Tensor) -> dict[str, torch.Tensor]:
+        """The request program (JAX ``_resample`` and ``_infer_fn``):
+        bucketed ``[K_b, M_b, 3]`` clusters -> the grasp dict."""
+        return self._infer(self._resample_tensor(xyz))
+
+    def _request_call(self, clusters: np.ndarray):
+        """The request program's ``(key, fn, inputs)`` for host clusters
+        ``[K, M, C]``, with K: the clusters padded on the host to their
+        bucket (``request_bucket``), M with each cluster's first point and K
+        with copies of cluster 0."""
+        K, M, _ = clusters.shape
+        kb, mb = request_bucket(K, M, self.cfg.num_points)
+        xyz = np.empty((kb, mb, 3), np.float32)
+        xyz[:K, :M] = clusters[..., :3]
+        xyz[:K, M:] = clusters[:, :1, :3]
+        xyz[K:] = xyz[:1]
+        return ("request", kb, mb), self._request, (torch.from_numpy(xyz),), K
 
     def _infer(self, xyz: torch.Tensor) -> dict[str, torch.Tensor]:
         m = self.models
@@ -227,7 +309,8 @@ class GraspPipeline:
 
     def infer_clusters(self, clusters: np.ndarray) -> dict[str, np.ndarray]:
         """Clusters ``[K, M, C]`` -> grasp estimates as host numpy arrays,
-        under the keys of the JAX package's ``infer_clusters``."""
-        with torch.inference_mode():
-            out = self._infer(self._resample(clusters))
-            return {k: v.cpu().numpy() for k, v in out.items()}
+        under the keys of the JAX package's ``infer_clusters``, through the
+        request program of their bucket."""
+        key, fn, inputs, K = self._request_call(clusters)
+        out = self.programs(key, fn, inputs)
+        return {k: v[:K].cpu().numpy() for k, v in out.items()}

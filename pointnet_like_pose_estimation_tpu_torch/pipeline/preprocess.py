@@ -30,12 +30,15 @@ and no count depends on the block size.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from pointnet_like_pose_estimation_tpu_torch.ops import farthest_point_sample, index_points
 from pointnet_like_pose_estimation_tpu_torch.pipeline import native_dbscan
 from pointnet_like_pose_estimation_tpu_torch.utils.device import resolve_device
+from pointnet_like_pose_estimation_tpu_torch.utils.programs import ProgramCache
 
 # pairs (or point-hypothesis products) held by one block of distance tests
 BLOCK_ELEMS = 1 << 24
@@ -274,7 +277,9 @@ def truncate_clusters(xyz: torch.Tensor, groups: list[np.ndarray]):
     cluster's size, from its first point: ``(points [K, min_size, 3],
     indices into the cloud [K, min_size])``, both on the device. The
     clusters are padded to the largest with copies of their first point,
-    which FPS never picks while real points remain."""
+    which FPS never picks while real points remain. The staged, unbucketed
+    form of the truncation that ``cluster_point`` and the scene program run
+    bucketed; the tests hold them against it."""
     min_size, max_size = min(map(len, groups)), max(map(len, groups))
     padded = np.stack([np.concatenate([g, np.full(max_size - len(g), g[0])]) for g in groups])
     idx = torch.from_numpy(padded).to(xyz.device)
@@ -283,14 +288,49 @@ def truncate_clusters(xyz: torch.Tensor, groups: list[np.ndarray]):
     return index_points(clusters, pick), torch.gather(idx, 1, pick)
 
 
+def _round_up(v: int, q: int) -> int:
+    return -(-v // q) * q
+
+
+def bucketed_groups(groups: list[np.ndarray]) -> tuple[np.ndarray, int]:
+    """The JAX package's bucketed index table of the clusters ``groups``:
+    int64 ``[k_bucket, n_bucket]``, each cluster padded with its first point
+    to ``n_bucket`` (the largest cluster's size rounded up to 256) and K to a
+    multiple of 4 with rows of cluster 0's first point; and ``s_bucket``,
+    the truncation FPS's sample count: the smallest cluster's size rounded
+    up to 256, at most ``n_bucket``."""
+    sizes = [len(g) for g in groups]
+    n_bucket = _round_up(max(sizes), 256)
+    table = np.full((_round_up(len(groups), 4), n_bucket), groups[0][0], np.int64)
+    for c, g in enumerate(groups):
+        table[c, :len(g)], table[c, len(g):] = g, g[0]
+    return table, min(_round_up(min(sizes), 256), n_bucket)
+
+
+# the truncation programs of each device, kept for the life of the process
+# as the JAX package keeps its module-level ``_fps_jit``
+_TRUNCATION_PROGRAMS: dict[torch.device, ProgramCache] = {}
+
+
 def cluster_point(points: np.ndarray, eps: float = 0.03, min_points: int = 500,
                   device="cuda") -> np.ndarray | None:
     """DBSCAN, then every cluster truncated to the smallest cluster's size
     by FPS on ``device``: float32 ``[K, min_size, C]``, or None when DBSCAN
-    finds no cluster."""
+    finds no cluster. The clusters are gathered on the host into their
+    bucket (``bucketed_groups``) and the FPS is one program per bucket
+    (``utils/programs.py``): FPS is greedy, so its first ``min_size`` picks
+    over ``s_bucket`` are its picks over ``min_size``."""
     device = resolve_device(device, "cluster_point")
     labels = dbscan(points, eps, min_points)
     if labels.max() < 0:
         return None
-    _, idx = truncate_clusters(_xyz(points, device), cluster_groups(labels))
-    return np.asarray(points, np.float32)[idx.cpu().numpy()]
+    groups = cluster_groups(labels)
+    table, s_bucket = bucketed_groups(groups)
+    batch = torch.from_numpy(np.ascontiguousarray(points[:, :3], np.float32)[table])
+    if device not in _TRUNCATION_PROGRAMS:
+        _TRUNCATION_PROGRAMS[device] = ProgramCache(device)
+    pick = _TRUNCATION_PROGRAMS[device](("truncate", *table.shape, s_bucket),
+                                        functools.partial(farthest_point_sample, num_samples=s_bucket), (batch,))
+    K, min_size = len(groups), min(map(len, groups))
+    idx = np.take_along_axis(table[:K], pick[:K, :min_size].cpu().numpy().astype(np.int64), axis=1)
+    return np.asarray(points, np.float32)[idx]

@@ -498,3 +498,154 @@ def test_frame_on_card_matches_cpu(card):
     np.testing.assert_array_equal(gpu["clusters"], cpu["clusters"])
     for k in ("log_probs", "rotation_deg", "sign_prob", "translation", "width"):
         np.testing.assert_allclose(gpu[k], cpu[k], rtol=1e-3, atol=1e-3, err_msg=k)
+
+
+# --- compiled programs: CUDA graphs captured per bucket and replayed -------------------------
+
+
+def _gap(got, want) -> float:
+    """Largest float gap of two grasp dicts (or tuples) of tensors; integer
+    outputs must be equal."""
+    if isinstance(got, dict):
+        got, want = list(got.values()), list(want.values())
+    worst = 0.0
+    for a, b in zip(got, want):
+        if a.dtype.is_floating_point:
+            worst = max(worst, float((a.float() - b.float()).abs().max()))
+        else:
+            assert torch.equal(a, b)
+    return worst
+
+
+def test_request_replay_equals_eager_and_takes_new_inputs(card):
+    """The request program's replay against its function called eagerly on
+    the card on the same bucketed inputs (classes exact, floats within 1e-5;
+    expected bit for bit), twice in one bucket with other clusters, and the
+    launches a replay adds are those its capture recorded."""
+    from pointnet_like_pose_estimation_tpu_torch.pipeline import GraspPipeline
+
+    pipe = GraspPipeline.from_random(seed=1, device="cuda")
+    rng = np.random.default_rng(3)
+    first = None
+    for K, M in [(3, 1300), (4, 1400), (2, 700)]:
+        clusters = (rng.uniform(-0.5, 0.5, (K, 1, 3)) + 0.05 * rng.standard_normal((K, M, 3))).astype(np.float32)
+        key, fn, inputs, _ = pipe._request_call(clusters)
+        f0, c0 = fps.launches, pipe.programs.captures
+        replay = pipe.programs(key, fn, inputs)
+        torch.cuda.synchronize()
+        runs = 1 + pipe.programs.captures - c0                   # a capture's warm-up ran too
+        assert fps.launches - f0 == runs * pipe.programs.launches(key)["fps"]
+        with torch.inference_mode():
+            eager = fn(*(x.to(card) for x in inputs))
+        assert _gap(replay, eager) <= 1e-5
+        if first is None:
+            first = {k: v.clone() for k, v in replay.items()}   # the next replay of its key overwrites it
+        elif key == ("request", 4, 1536):
+            assert not torch.equal(first["log_probs"], replay["log_probs"])
+    assert pipe.programs.captures == 2 and pipe.programs.replays == 3
+    assert pipe.programs.launches(("request", 4, 1536)) == {"fps": 3, "ball_query": 2, "fused_sa": 0}
+
+
+@pytest.mark.parametrize("sizes", [[1300, 1700, 2100], [1024, 1500], [600, 900, 400]])
+def test_scene_replay_equals_eager(card, sizes):
+    from pointnet_like_pose_estimation_tpu_torch.pipeline import GraspPipeline
+
+    pipe = GraspPipeline.from_random(seed=2, device="cuda")
+    rng = np.random.default_rng(len(sizes))
+    for _ in range(2):                                       # the same bucket, other points
+        parts = [rng.uniform(-0.5, 0.5, (1, 3)) + 0.05 * rng.standard_normal((n, 3)) for n in sizes]
+        pts = np.concatenate(parts).astype(np.float32)
+        labels = np.concatenate([np.full(n, c) for c, n in enumerate(sizes)])
+        key, fn, inputs, K, _ = pipe._scene_call(pts, labels)
+        out, cglobal = pipe.programs(key, fn, inputs)
+        with torch.inference_mode():
+            want, want_cglobal = fn(*(x.to(card) for x in inputs))
+        assert torch.equal(cglobal, want_cglobal) and _gap(out, want) <= 1e-5
+        cpu = GraspPipeline.from_random(seed=2, device="cpu")._infer_scene(pts, labels)
+        got = pipe._infer_scene(pts, labels)
+        np.testing.assert_array_equal(got["clusters"], cpu["clusters"])
+        np.testing.assert_array_equal(got["pred_class"], cpu["pred_class"])
+    assert pipe.programs.captures == 1 and pipe.programs.replays == 4
+
+
+@pytest.mark.parametrize("name", ["pointnet2_cls_ssg", "pointnet2_cls_msg"])
+def test_executor_replay_equals_eager(card, name):
+    from pointnet_like_pose_estimation_tpu_torch.kernels.fused_sa import fused_sa_infer as fused
+    from pointnet_like_pose_estimation_tpu_torch.models import build_model
+    from pointnet_like_pose_estimation_tpu_torch.models.fast_infer import (
+        build_pn2_msg_infer,
+        build_pn2_ssg_infer,
+    )
+
+    build = build_pn2_ssg_infer if name == "pointnet2_cls_ssg" else build_pn2_msg_infer
+    torch.manual_seed(0)
+    fwd = build(build_model(name).eval())
+    outs = []
+    for seed in (4, 5):
+        x = _clouds(4, 1024, seed).to(card)
+        s0 = fused.launches
+        got = fwd(x)
+        torch.cuda.synchronize()
+        assert fused.launches - s0 == (4 if seed == 4 else 2)         # warm-up and replay, then a replay
+        with torch.inference_mode():
+            assert _gap(got, fwd.body(x)) <= 1e-5
+        outs.append(got[0])
+    assert not torch.equal(outs[0], outs[1])
+    assert (fwd.programs.captures, fwd.programs.replays) == (1, 2)
+    assert fwd.programs.launches(("executor", 4, 1024, 3)) == {"fps": 2, "ball_query": 0, "fused_sa": 2}
+
+
+def test_captures_equal_the_distinct_buckets(card):
+    from pointnet_like_pose_estimation_tpu_torch.pipeline import GraspPipeline
+
+    pipe = GraspPipeline.from_random(seed=3, device="cuda")
+    rng = np.random.default_rng(0)
+    shapes = [(3, 1100), (4, 1200), (1, 1100), (5, 1100), (8, 1280), (2, 700), (2, 700), (4, 2048)]
+    for K, M in shapes:
+        pipe.infer_clusters(rng.standard_normal((K, M, 3)).astype(np.float32) * 0.05)
+    assert pipe.programs.captures == len(pipe.programs) == 4
+    assert pipe.programs.replays == len(shapes)
+
+
+def test_a_failed_capture_raises_and_runs_nothing_eagerly(card):
+    """A program that reads the device back to the host (FPS from a start
+    tensor checks its range on the host) cannot be captured: the call
+    raises, and hands back no eager result. In a fresh interpreter, so that
+    the failed capture leaves this process's stream alone."""
+    import subprocess
+    import sys
+
+    code = (
+        "import torch\n"
+        "from pointnet_like_pose_estimation_tpu_torch.kernels.fps import fps\n"
+        "from pointnet_like_pose_estimation_tpu_torch.utils.programs import ProgramCache\n"
+        "cache = ProgramCache('cuda')\n"
+        "x = torch.rand(2, 256, 3, device='cuda')\n"
+        "start = torch.zeros(2, dtype=torch.int32, device='cuda')\n"
+        "try:\n"
+        "    out = cache(('fps',), lambda p: fps(p, 16, start), (x,))\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', cache.captures, cache.replays, len(cache))\n"
+        "else:\n"
+        "    print('returned', out.shape)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert res.stdout.strip().splitlines()[-1] == "raised 0 0 0", res.stdout + res.stderr
+
+
+def test_cluster_point_truncation_is_a_replay(card, monkeypatch):
+    """The staged path's truncation FPS: one program per bucket, equal to
+    the CPU's, a second scene of the bucket a replay."""
+    from pointnet_like_pose_estimation_tpu_torch.pipeline import preprocess as pp
+
+    rng = np.random.default_rng(8)
+    sizes = [1500, 700, 1100]
+    labels = np.concatenate([np.full(n, c) for c, n in enumerate(sizes)])
+    monkeypatch.setattr(pp, "dbscan", lambda *args, **kw: labels)
+    programs = pp._TRUNCATION_PROGRAMS.setdefault(card, pp.ProgramCache(card))
+    c0, r0 = programs.captures, programs.replays
+    for _ in range(2):
+        pts = np.concatenate([rng.uniform(-0.5, 0.5, (1, 3)) + 0.05 * rng.standard_normal((n, 3))
+                              for n in sizes]).astype(np.float32)
+        np.testing.assert_array_equal(pp.cluster_point(pts, device="cuda"), pp.cluster_point(pts, device="cpu"))
+    assert (programs.captures - c0, programs.replays - r0) == (1, 2)

@@ -46,8 +46,8 @@ def _clusters(rng, K, M):
 
 def test_matches_jax_pipeline(port):
     """M > 1024 (FPS), M < 1024 (tiling), M == 1024 (as is); K = 3 is not a
-    multiple of 4 and M = 1500 not of 256, so the JAX padding is exercised
-    and dropping it in the port changes nothing."""
+    multiple of 4 and M = 1500 not of 256, so both packages pad the request
+    to its bucket."""
     from pointnet_like_pose_estimation_tpu.pipeline import GraspPipeline as JaxPipeline
     from pointnet_like_pose_estimation_tpu.pipeline import PipelineConfig as JaxConfig
 
