@@ -19,7 +19,9 @@ Phases, any failure exits non-zero:
    picks (the head's C = 10 calls must take a register path). A kernel's time is the
    device time of a call (launches captured in a CUDA graph and replayed
    between two events), beside its bound; for the ball query the time of a
-   call launched from Python in a loop stands beside it;
+   call launched from Python in a loop stands beside it; and FPS's shared
+   path, off the main path, timed beside its plain version at
+   SHARED_FPS_SHAPES;
 4. serve requests through GraspPipeline.from_checkpoints on the five
    committed checkpoints: the replay clusters of tests/fixtures and three
    seeded batches (M > 1024, M < 1024, and one more M > 1024 in the bucket
@@ -66,7 +68,10 @@ Phases, any failure exits non-zero:
    weights, with the launch counts checked and the results held against
    the same code on the CPU; the eval command on every committed
    checkpoint, held against evaluate; a request through a pipeline with
-   the MSG classifier; eval throughput per model.
+   the MSG classifier; eval throughput per model, through the eval program
+   (train/loop.py: one CUDA graph a model and batch shape, captured at the
+   first batch) beside the same batches run eagerly, whose figures it must
+   equal.
 
 8. the training path (cli.py train, train/loop.py train, train/steps.py
    make_train_step): one train step of pointnet2_cls_ssg, sign_msg,
@@ -74,7 +79,11 @@ Phases, any failure exits non-zero:
    step on the CPU, from the committed checkpoints (seeded weights with
    nontrivial BatchNorm for the last two), on the same batch of the
    generated dataset with
-   the same augmentation and dropout draws (made once on the CPU): loss,
+   the same augmentation and dropout draws (made once on the CPU); the
+   card's step is a replay of its training program (captured at a first
+   call, after which the model and optimizer are put back to the start in
+   place), held also against the eager step on the card (loss, metric, BN
+   statistics, gradients by TRAIN_TOL and TIED_GRADIENTS): loss,
    metric and the updated BatchNorm statistics within TRAIN_TOL, every
    gradient within TRAIN_TOL element by element (relative, and absolute
    times the model's largest gradient element) or, where a max over a
@@ -90,10 +99,16 @@ Phases, any failure exits non-zero:
    end to end on the generated dataset: pointnet2_cls_ssg and the vanilla
    rotation head for 2 epochs, each resumed from latest.pt for a third,
    history.json with epochs 0, 1, 2, the classifier's loss falling, the
-   eval command on best.pt equal to evaluate; then training clouds/s and
-   peak device memory of pointnet2_cls_ssg at batch 24 and 256 (CUDA
-   events over spans of 2 s or more, median of 3, the split resident on the
-   card), in float32 and bfloat16 in turns.
+   eval command on best.pt equal to evaluate (every epoch's steps and eval
+   batches replays of their programs, the FPS launches exactly one run a
+   call); one replay of a train step under torch.profiler, which must run
+   on the card the 2 FPS and 2 ball-query kernels its capture recorded;
+   then training clouds/s and peak device memory of
+   pointnet2_cls_ssg at batch 24 and 256 (CUDA events over spans of 2 s or
+   more, median of 3, batches gathered on the card from the resident
+   split), in float32 and bfloat16 in turns, the eager step and then the
+   programmed one, with each training cache's captures, capture seconds,
+   replays and pool MB.
 
 9. bfloat16 (BatchNorm in float32): one bf16 train step of
    pointnet2_cls_ssg on the card against the CPU's bf16 and f32 steps
@@ -257,6 +272,8 @@ BF16_LOSS_TOL, BF16_STATS_TOL, BF16_GRAD_REL_L2, BF16_GRAD_FLOOR = 5e-3, 5e-3, 0
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
+# (B, N, C, S) of FPS's shared path, timed beside its plain version
+SHARED_FPS_SHAPES = ((9, 8192, 3, 256), (32, 8192, 10, 256))
 # (radii, ks) of the set-abstraction levels of the SSG and MSG models
 SSG_SA1, SSG_SA2 = ((0.2,), (32,)), ((0.4,), (64,))
 MSG_SA1, MSG_SA2 = ((0.1, 0.2, 0.4), (16, 32, 128)), ((0.2, 0.4, 0.8), (32, 64, 128))
@@ -529,6 +546,17 @@ def kernel_phase(device) -> list[dict]:
              f"{what} N={N} P={P} S={S} radii={radii} ks={ks} plan={tuple(ball_query_plan(N, P, ks))}")
         if empty:
             check(bool((got == N - 1).all()), "empty balls: output is not N-1")
+
+    # the shared path off the main path (more than 8 clouds of 4097-57,856
+    # points, or C outside 3 and 10): its time and its plain version's
+    for B, N, C, S in SHARED_FPS_SHAPES:
+        pts = torch.from_numpy(np.concatenate(
+            [unit_clouds(rng, B, N), rng.standard_normal((B, N, C - 3)).astype(np.float32)], -1)).to(device)
+        check(fps_path(N, C, B) == "shared", f"fps {B} x {N} x {C}: {fps_path(N, C, B)} path, not shared")
+        bound, by = fps_bound_ms(B, N, C, S)
+        row = {"shape": [B, N, C, S], "ms": cuda_graph_ms(lambda: fps(pts, S), 5),
+               "plain_ms": cuda_ms(lambda: fps_reference(pts, S), 1), "bound_ms": bound, "bound_by": by}
+        log(f"  time fps shared path {json.dumps(row)}")
 
     fps_calls, bq_calls = path_calls(rng, device)
 
@@ -1065,6 +1093,25 @@ def serving_phase(pipe, cpu, kernels: list[dict]) -> dict:
     return report
 
 
+def eager_evaluate(spec, cfg, model, ds, device) -> dict:
+    """``evaluate``'s work without its program: the same padded batches,
+    each batch's sums run op by op on the card, the one copy to the host."""
+    import torch
+
+    from pointnet_like_pose_estimation_tpu_torch.nn import set_compute_dtype
+    from pointnet_like_pose_estimation_tpu_torch.train.loop import (
+        _batch_sums,
+        _device_eval_batches,
+        _finalize_eval,
+        _host_sums,
+    )
+
+    model = set_compute_dtype(model, cfg.dtype).eval()
+    with torch.no_grad():
+        total = sum(_batch_sums(spec, cfg, model, b) for b in _device_eval_batches(ds, cfg.batch_size, device))
+    return _finalize_eval(spec, cfg, _host_sums(spec, cfg, total))
+
+
 # model -> (experiment directory under log/ or None for seeded weights, FPS and
 # ball-query launches per batch: one each per set-abstraction level that samples)
 EVAL_MODELS = {
@@ -1099,9 +1146,14 @@ def eval_phase(device, kernels: list[dict]) -> dict:
     against the same code on the CPU over 48 test clouds spread over the classes: per-cloud predictions
     within TOL, classes equal, hard signs equal wherever the probability is
     more than 1e-4 from 0.5, every figure of ``evaluate`` within TOL
-    relative. Then a request through a pipeline whose classifier is
+    relative. ``evaluate`` runs one eval program a model (a CUDA graph,
+    captured at its first batch and replayed at the others): its figures
+    must equal those of the same batches run eagerly on the card within
+    PROGRAM_TOL. Then a request through a pipeline whose classifier is
     ``pointnet2_cls_msg`` on seeded weights against the CPU pipeline, and
-    the eval throughput per model (median of 5 passes after a warm-up)."""
+    the eval throughput per model through the program and eagerly (in
+    turns program, eager, eager, program, each a warm-up pass and 3 timed
+    ones, the median of each kind's 6), with the program cache's line."""
     import torch
 
     from pointnet_like_pose_estimation_tpu_torch import cli
@@ -1117,7 +1169,7 @@ def eval_phase(device, kernels: list[dict]) -> dict:
         load_checkpoint,
         make_eval_step,
     )
-    from pointnet_like_pose_estimation_tpu_torch.train.loop import _device_eval_batches
+    from pointnet_like_pose_estimation_tpu_torch.train.loop import _device_eval_batches, eval_programs
 
     t0 = time.perf_counter()
     f0 = fps.launches
@@ -1209,16 +1261,29 @@ def eval_phase(device, kernels: list[dict]) -> dict:
             evaluate(cfg, model, test)
             torch.cuda.synchronize()
 
-        one_pass()
-        times = []
-        for _ in range(5):
-            t1 = time.perf_counter()
-            one_pass()
-            times.append(time.perf_counter() - t1)
+        def eager_pass():
+            return eager_evaluate(spec, cfg, model, test, device)
+
+        with uncounted():
+            eager_res = eager_pass()
+        check(set(eager_res) == set(res) and all(np.allclose(eager_res[k], res[k], rtol=PROGRAM_TOL, atol=PROGRAM_TOL)
+                                                 for k in res),
+              f"{name}: evaluate's program gave {res}, the same batches run eagerly on the card {eager_res}")
+        times = {}
+        with uncounted():
+            for what, fn in (("program", one_pass), ("eager", eager_pass), ("eager", eager_pass),
+                             ("program", one_pass)):        # in turns
+                fn()
+                for _ in range(3):
+                    t1 = time.perf_counter()
+                    fn()
+                    times.setdefault(what, []).append(time.perf_counter() - t1)
         headline = res.get("instance_acc", res.get("mean_err"))
         results[name] = {
             "weights": experiment or "seeded", "metric": res["metric"], "headline": headline,
-            "loss": res["loss"], "clouds_per_s": len(test) / statistics.median(times),
+            "loss": res["loss"], "clouds_per_s": len(test) / statistics.median(times["program"]),
+            "clouds_per_s_eager": len(test) / statistics.median(times["eager"]),
+            "programs": programs_line(f"eval {name}", eval_programs(model, device)),
             "fps_and_ball_query_launches_per_batch": got[0] // batches,
             "eval_command": experiment is not None,
             "checkpoint_metric": None if meta is None else meta["metric"],
@@ -1272,10 +1337,17 @@ def step_pair(device, name, experiment, data_path, dtype="float32", seed=40):
     """One train step of ``name`` at batch 24 of the generated dataset, on the
     card and on the CPU from the same weights (the committed ``experiment``
     or ``seeded_model``) with the same augmentation and dropout draws (made
-    once on the CPU). Returns ``(cfg, cpu_model, card_model, cpu_out,
-    card_out, launches, params_before, linear_dtypes)``; ``launches`` counts
-    the card step's FPS and ball-query launches, ``linear_dtypes`` the
-    dtypes of the card's Linear outputs in its forward."""
+    once on the CPU). The card's step is a replay of its training program:
+    the program is captured at a first call, the card's model and optimizer
+    are then put back in place to the start (the parameters and statistics
+    copied in, Adam's moments and step count zeroed, which its first step
+    treats as a fresh state), and the step held against the CPU is the
+    second call. Beside it the eager step on the card, from a copy of the
+    start. Returns ``(cfg, cpu_model, card_model, cpu_out, card_out,
+    launches, params_before, linear_dtypes, eager)``; ``launches`` counts
+    the replay's FPS and ball-query launches, ``linear_dtypes`` the dtypes
+    of the card's Linear outputs in the captured forward, ``eager`` the
+    eager step's ``(model, out)`` and the program cache's line."""
     import torch
 
     from pointnet_like_pose_estimation_tpu_torch.data import PoseDataset, load_dataset
@@ -1306,21 +1378,39 @@ def step_pair(device, name, experiment, data_path, dtype="float32", seed=40):
                                        build_model(name))
     cpu_model = set_compute_dtype(cpu_model, dtype)
     card_model = copy.deepcopy(cpu_model).to(device)
+    eager_model = copy.deepcopy(card_model)
+    start = {k: v.clone() for k, v in card_model.state_dict().items()}
     before = {k: p.detach().clone() for k, p in cpu_model.named_parameters()}
     draws = draw_step(cfg, cpu_model, cpu_batch, torch.Generator().manual_seed(31))   # made once
     card_draws = {part: {k: v.to(device) for k, v in d.items()} for part, d in draws.items()}
     step = make_train_step(spec, cfg)
+    card_opt = make_optimizer(cfg, card_model.parameters())[0]
     linear_dtypes = set()
     hooks = [m.register_forward_hook(lambda m, i, o: linear_dtypes.add(o.dtype))
              for m in card_model.modules() if isinstance(m, torch.nn.Linear)]
-    f0, b0 = fps.launches, ball_query_multi.launches
-    card_out = step(card_model, make_optimizer(cfg, card_model.parameters())[0], card_batch, draws=card_draws)
-    torch.cuda.synchronize()
-    launches = (fps.launches - f0, ball_query_multi.launches - b0)
+    with uncounted():
+        step(card_model, card_opt, card_batch, draws=card_draws)            # runs the step, then captures it
     for h in hooks:
         h.remove()
+    card_model.load_state_dict(start)
+    for state in card_opt.state.values():
+        for t in state.values():
+            t.zero_()
+    f0, b0 = fps.launches, ball_query_multi.launches
+    card_out = step(card_model, card_opt, card_batch, draws=card_draws)    # a replay
+    torch.cuda.synchronize()
+    launches = (fps.launches - f0, ball_query_multi.launches - b0)
+    programs = step.cache(device)
+    check((programs.captures, programs.replays, programs.remade) == (1, 1, 0),
+          f"train step {name} {dtype}: the step held against the CPU is no replay of its program")
+    card_out = {k: v.clone() for k, v in card_out.items()}
+    with uncounted():
+        eager_out = step.eager(eager_model, make_optimizer(cfg, eager_model.parameters())[0], card_batch,
+                               draws=card_draws)
     cpu_out = step(cpu_model, make_optimizer(cfg, cpu_model.parameters())[0], cpu_batch, draws=draws)
-    return cfg, cpu_model, card_model, cpu_out, card_out, launches, before, linear_dtypes
+    eager = {"model": eager_model, "out": eager_out,
+             "programs": programs_line(f"train step {name} {dtype}", programs)}
+    return cfg, cpu_model, card_model, cpu_out, card_out, launches, before, linear_dtypes, eager
 
 
 def train_step_check(device, name, experiment, per_step, data_path):
@@ -1331,8 +1421,8 @@ def train_step_check(device, name, experiment, per_step, data_path):
 
     from pointnet_like_pose_estimation_tpu_torch.nn import pre_bn_biases
 
-    cfg, cpu_model, card_model, cpu_out, card_out, got, before, dtypes = step_pair(device, name, experiment,
-                                                                                    data_path)
+    cfg, cpu_model, card_model, cpu_out, card_out, got, before, dtypes, eager = step_pair(
+        device, name, experiment, data_path)
     check(got == (per_step, per_step), f"train step {name}: fps/ball_query launches {got}, want {per_step} each")
     check(dtypes == {torch.float32}, f"train step {name}: the card's Linear layers gave {dtypes}")
 
@@ -1389,12 +1479,15 @@ def train_step_check(device, name, experiment, per_step, data_path):
             check(bool(((side - before[k]).abs() <= step_bound)[floor].all()),
                   f"train step {name}: {k} moved more than the learning rate at Adam's rounding floor")
         must(f"parameter {k}", card_p[~floor], p.detach()[~floor])
-    log(f"  train step {name} B={TRAIN_BATCH} ({experiment or 'seeded weights'}): card matches the CPU "
-        f"(loss {float(cpu_out['loss']):.6f}; gradient scale {scale:.4g}; max abs diff {json.dumps(worst)}; "
-        f"named gradients held by "
-        f"relative L2: {json.dumps(by_norm)}); fps/ball_query launches {got}")
+    replay = hold_step(f"train step {name}: the replay against the eager step on the card", name, card_model,
+                       eager["model"], card_out, eager["out"])
+    log(f"  train step {name} B={TRAIN_BATCH} ({experiment or 'seeded weights'}): the replay of its program "
+        f"matches the CPU (loss {float(cpu_out['loss']):.6f}; gradient scale {scale:.4g}; max abs diff "
+        f"{json.dumps(worst)}; named gradients held by relative L2: {json.dumps(by_norm)}); fps/ball_query "
+        f"launches {got}; against the eager step on the card {json.dumps(replay['max_abs_diff'])}")
     return {"loss": float(cpu_out["loss"]), "gradient_scale": scale, "max_abs_diff": worst,
-            "named_gradients_by_rel_l2": by_norm,
+            "named_gradients_by_rel_l2": by_norm, "replay_vs_eager_max_abs_diff": replay["max_abs_diff"],
+            "programs": eager["programs"],
             "fps_and_ball_query_launches": got[0], "weights": experiment or "seeded"}
 
 
@@ -1405,8 +1498,8 @@ def bf16_train_step_check(device, name, experiment, per_step, data_path) -> dict
 
     from pointnet_like_pose_estimation_tpu_torch.nn import pre_bn_biases
 
-    _, cpu16, card16, cpu_out, card_out, got, _, dtypes = step_pair(device, name, experiment, data_path,
-                                                                      "bfloat16")
+    _, cpu16, card16, cpu_out, card_out, got, _, dtypes, eager = step_pair(device, name, experiment, data_path,
+                                                                             "bfloat16")
     check(got == (per_step, per_step), f"bf16 train step {name}: fps/ball_query launches {got}, want {per_step}")
     check(dtypes == {torch.bfloat16}, f"bf16 train step {name}: the card's Linear layers gave {dtypes}")
     _, cpu32, _, out32, *_ = step_pair(device, name, experiment, data_path, "float32")
@@ -1439,7 +1532,10 @@ def bf16_train_step_check(device, name, experiment, per_step, data_path) -> dict
         if k.endswith(("running_mean", "running_var")):
             stats = max(stats, float((card_state[k].cpu() - v).abs().max()))
     check(stats <= BF16_STATS_TOL, f"bf16 train step {name}: BN statistics {stats} from the CPU's")
-    out = {"loss_card": loss, "loss_cpu_bf16": loss16, "loss_cpu_f32": loss32, "grad_rel_l2_vs_cpu_bf16": whole,
+    eager_g = {k: p.grad.detach().cpu().double() for k, p in eager["model"].named_parameters() if k in card_g}
+    out = {"replay_vs_eager_grad_rel_l2": rel(cat(card_g), cat(eager_g)),
+           "replay_vs_eager_loss": abs(loss - float(eager["out"]["loss"])),
+           "loss_card": loss, "loss_cpu_bf16": loss16, "loss_cpu_f32": loss32, "grad_rel_l2_vs_cpu_bf16": whole,
            "grad_rel_l2_vs_cpu_f32": whole32, "cpu_bf16_vs_f32_grad_rel_l2": rel(cat(g16), cat(g32)), "worst_tensor_gap_ratio": worst_ratio,
            "stats_max_abs_diff": stats, "fps_and_ball_query_launches": got[0]}
     log(f"  bf16 train step {name} B={TRAIN_BATCH}: card matches the CPU within the stated bounds "
@@ -1447,12 +1543,18 @@ def bf16_train_step_check(device, name, experiment, per_step, data_path) -> dict
     return out
 
 
-def train_throughput(device, name, B, data, dtype="float32", make_step=None, span_ms=2000.0) -> dict:
+def train_throughput(device, name, B, data, dtype="float32", make_step=None, span_ms=2000.0,
+                     eager=False) -> dict:
     """Training clouds/s at batch B in ``dtype``: train steps on batches
     drawn on the card from the resident split, CUDA events around spans of
     ``span_ms`` or more, median of 3; peak device memory over the spans.
     ``make_step(spec, cfg)`` builds the step (``make_train_step`` unless
-    given)."""
+    given); with ``eager`` the step runs op by op (``TrainStep.eager``),
+    else a step of ``make_train_step`` replays its program, whose cache's
+    line (captures, capture seconds, replays, pool MB) is reported. The
+    step and its program are freed before this returns."""
+    import gc
+
     import torch
 
     from pointnet_like_pose_estimation_tpu_torch.train import TrainConfig, build_state, make_train_step
@@ -1460,12 +1562,13 @@ def train_throughput(device, name, B, data, dtype="float32", make_step=None, spa
     cfg = TrainConfig.for_model(name, batch_size=B, dtype=dtype)
     spec, state = build_state(cfg, device)
     step = (make_step or make_train_step)(spec, cfg)
+    call = step.eager if eager else step
     n = data["labels"].shape[0]
 
     def run(steps):
         for _ in range(steps):
             idx = torch.randint(0, n, (B,), generator=state.generator, device=device)
-            step(state.model, state.optimizer, {k: v[idx] for k, v in data.items()}, state.generator)
+            call(state.model, state.optimizer, {k: v[idx] for k, v in data.items()}, state.generator)
 
     def span(steps) -> float:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1489,8 +1592,35 @@ def train_throughput(device, name, B, data, dtype="float32", make_step=None, spa
     ms = statistics.median(spans)
     out = {"clouds_per_s": steps * B / (ms / 1e3), "ms_per_step": ms / steps, "steps_per_span": steps,
            "span_ms": spans, "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20}
-    log(f"  train throughput {name} {dtype} B={B}: {json.dumps(out)}")
+    if not eager and hasattr(step, "cache"):
+        out["programs"] = programs_line(f"train {name} {dtype} B={B}", step.cache(device))
+    log(f"  train throughput {name} {dtype} B={B}{' eager' if eager else ''}: {json.dumps(out)}")
+    del step, call, state
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
+
+
+def profiled_train_replay(device, data) -> dict:
+    """One replay of a pointnet2_cls_ssg train step under torch.profiler:
+    the FPS and ball-query kernels run on the card inside the graph, as
+    many as its capture recorded (the launches are no main-path ones)."""
+    from pointnet_like_pose_estimation_tpu_torch.train import TrainConfig, build_state, make_train_step
+
+    cfg = TrainConfig.for_model("pointnet2_cls_ssg", batch_size=TRAIN_BATCH)
+    spec, state = build_state(cfg, device)
+    step = make_train_step(spec, cfg)
+    batch = {k: v[:TRAIN_BATCH] for k, v in data.items()}
+    with uncounted():
+        step(state.model, state.optimizer, batch, state.generator)         # runs the step, then captures it
+        seen = profiled_launches(lambda: step(state.model, state.optimizer, batch, state.generator))
+    programs = step.cache(device)
+    recorded = programs.launches(programs.keys()[0])
+    check(programs.replays == 1 and seen["fps"] == recorded["fps"] == 2
+          and seen["ball_query"] == recorded["ball_query"] == 2,
+          f"a train step's replay under the profiler ran {seen}, its capture recorded {recorded}")
+    log(f"  a train step's replay under the profiler ran {seen} on the card, as its capture recorded")
+    return {"profiled": seen, "recorded": recorded}
 
 
 def train_phase(device, kernels: list[dict]) -> dict:
@@ -1563,10 +1693,13 @@ def train_phase(device, kernels: list[dict]) -> dict:
     report["launches"] = launches
 
     data = _device_data(train_ds, device)
+    report["profiled_replay"] = profiled_train_replay(device, data)
     for B in (24, 256):
         for dtype in ("float32", "bfloat16"):       # in turns, in one process
             key = f"pointnet2_cls_ssg B={B}" + ("" if dtype == "float32" else " bfloat16")
-            report["throughput"][key] = train_throughput(device, "pointnet2_cls_ssg", B, data, dtype)
+            for eager in (True, False):             # the eager step, then the program
+                report["throughput"][key + (" eager" if eager else "")] = train_throughput(
+                    device, "pointnet2_cls_ssg", B, data, dtype, eager=eager)
     return report
 
 

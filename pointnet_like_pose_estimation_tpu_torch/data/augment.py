@@ -41,8 +41,10 @@ def uniform(gen: torch.Generator, shape) -> torch.Tensor:
 def _in_range(u: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """``jax.random.uniform(minval=lo, maxval=hi)`` from its unit draw:
     ``max(lo, u * (hi - lo) + lo)`` with the bounds in float32."""
-    lo32 = torch.tensor(lo, dtype=torch.float32, device=u.device)
-    hi32 = torch.tensor(hi, dtype=torch.float32, device=u.device)
+    # made on the device (a fill, no copy from the host, which a captured
+    # train step could not make)
+    lo32 = torch.full((), lo, dtype=torch.float32, device=u.device)
+    hi32 = torch.full((), hi, dtype=torch.float32, device=u.device)
     return torch.maximum(lo32, u * (hi32 - lo32) + lo32)
 
 

@@ -6,8 +6,9 @@ reads into both).
 ``"bfloat16"``; parameters, optimizer state and BatchNorm stay float32.
 ``data_parallel`` trains over every rank of the process group (``train``),
 which ``multihost`` forms from the ``torchrun`` environment.
-``epoch_chunk`` has no effect in the port: it bounds the time of one TPU
-dispatch in the JAX package, and the port launches its steps eagerly.
+``epoch_chunk`` has no effect in the port: it is the number of steps of one
+TPU dispatch in the JAX package (a scan segment), and the port replays one
+captured graph a step (``steps.EpochRunner``).
 ``device_data`` keeps the train split on the device (one upload, batches
 gathered there); off, batches come from the host one by one.
 """
@@ -39,7 +40,7 @@ class TrainConfig:
     data_parallel: bool = False
     multihost: bool = False
     device_data: bool = True         # dataset resident on the device
-    epoch_chunk: int = 256           # no effect in the port (a TPU dispatch bound)
+    epoch_chunk: int = 256           # steps of one TPU dispatch; no effect in the port
     ckpt_every: int = 1
     # reference-compat quirk flags
     compat_first3_mean: bool = False  # mean of the first three points

@@ -2,8 +2,9 @@
 ``train/loop.py`` of the JAX package).
 
 ``train`` runs the reference's recipe on one device: the train split
-uploaded once, an epoch of eager train steps on it (``steps.
-make_epoch_runner``), one small copy to the host per epoch, an
+uploaded once, an epoch of train steps on it (``steps.make_epoch_runner``,
+on the card one replay of a captured training program a step), one small
+copy to the host per epoch, an
 ``evaluate`` of the test split after each epoch, the best checkpoint by the
 task's direction and the latest every ``cfg.ckpt_every`` epochs, a merged
 ``history.json`` written atomically after every epoch, and SIGTERM/SIGINT
@@ -17,12 +18,12 @@ overwrite; ``load_checkpoint`` reads either.
 ``evaluate`` keeps the reference's metric conventions: instance and
 mean-per-class accuracy for classification and sign, per-axis and
 per-class absolute errors for the regressions, centimetres for
-translation. The split is uploaded once, the raw sums are accumulated on
-the device, and one small copy brings them to the host at the end. The JAX
-package pads the split to whole batches and masks the pad, so that one
-compiled program serves every batch; the port runs eagerly and lets the
-last batch be short, which changes no sum (eval-mode BatchNorm treats every
-cloud on its own).
+translation. The split is padded to whole batches and uploaded once, as
+the JAX package's ``make_device_eval_runner`` takes it, so that one
+program serves every batch (on the card a CUDA graph, captured at the
+first batch and replayed at the others; ``_eval_sums``); the raw sums,
+masked to the real rows, are accumulated on the device, and one small copy
+brings them to the host at the end.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from pointnet_like_pose_estimation_tpu_torch.nn import set_compute_dtype
 from pointnet_like_pose_estimation_tpu_torch.train.config import TrainConfig
 from pointnet_like_pose_estimation_tpu_torch.train.state import TrainState, create_train_state
 from pointnet_like_pose_estimation_tpu_torch.train.steps import (
+    _TARGET_KEY,
     _prepare_inputs,
     make_epoch_runner,
     make_train_step,
@@ -54,6 +56,7 @@ from pointnet_like_pose_estimation_tpu_torch.utils.checkpoint import (
     load_flax_checkpoint,
 )
 from pointnet_like_pose_estimation_tpu_torch.utils.device import resolve_device
+from pointnet_like_pose_estimation_tpu_torch.utils.programs import StepProgramCache, program_device
 
 log = logging.getLogger("plpe_torch.train")
 
@@ -116,52 +119,90 @@ def best_checkpoint(cfg: TrainConfig) -> str:
     return path if os.path.exists(path) else os.path.join(ckpt, "best.msgpack")
 
 
-def _device_data(ds: PoseDataset, device: torch.device) -> dict:
-    """The split's arrays as tensors on ``device``, uploaded once (labels
-    as int64, ``width`` as ``[M, 1]``)."""
-    data = {
-        "points": torch.from_numpy(np.ascontiguousarray(ds.points, np.float32)),
-        "labels": torch.from_numpy(np.ascontiguousarray(ds.labels, np.int64)),
-        "rot": torch.from_numpy(np.ascontiguousarray(ds.rot, np.float32)),
-        "tran": torch.from_numpy(np.ascontiguousarray(ds.tran, np.float32)),
-        "sign": torch.from_numpy(np.ascontiguousarray(ds.sign, np.float32)),
-        "width": torch.from_numpy(np.ascontiguousarray(ds.width, np.float32).reshape(-1, 1)),
+def _host_arrays(ds: PoseDataset) -> dict:
+    """The split's arrays as the device takes them (labels as int64,
+    ``width`` as ``[M, 1]``)."""
+    return {
+        "points": np.ascontiguousarray(ds.points, np.float32),
+        "labels": np.ascontiguousarray(ds.labels, np.int64),
+        "rot": np.ascontiguousarray(ds.rot, np.float32),
+        "tran": np.ascontiguousarray(ds.tran, np.float32),
+        "sign": np.ascontiguousarray(ds.sign, np.float32),
+        "width": np.ascontiguousarray(ds.width, np.float32).reshape(-1, 1),
     }
-    return {k: v.to(device) for k, v in data.items()}
+
+
+def _device_data(ds: PoseDataset, device: torch.device) -> dict:
+    """The split's arrays as tensors on ``device``, uploaded once."""
+    return {k: torch.from_numpy(v).to(device) for k, v in _host_arrays(ds).items()}
 
 
 def _device_eval_batches(ds: PoseDataset, batch_size: int, device: torch.device) -> list[dict]:
-    """Upload the split once and cut it into batches of ``batch_size``
-    (views of the uploaded tensors; the last may be short)."""
-    data = _device_data(ds, device)
-    return [{k: v[lo:lo + batch_size] for k, v in data.items()}
-            for lo in range(0, len(ds), batch_size)]
+    """The split padded to whole batches (row 0 repeated, as the JAX
+    package's ``_device_eval_batches`` pads it), uploaded once and cut into
+    batches of ``batch_size`` (views of the uploaded tensors), each with
+    its ``[B]`` float mask ``valid``, 0 on the pad rows."""
+    m = len(ds)
+    nb = -(-m // batch_size)
+    rows = np.concatenate([np.arange(m), np.zeros(nb * batch_size - m, np.int64)])
+    data = {k: v[rows] for k, v in _host_arrays(ds).items()}
+    data["valid"] = (np.arange(nb * batch_size) < m).astype(np.float32)
+    data = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+    return [{k: v[i * batch_size:(i + 1) * batch_size] for k, v in data.items()} for i in range(nb)]
 
 
-def _accumulate(spec: ModelSpec, cfg: TrainConfig, sums: dict, outputs, target, labels) -> None:
-    """Add one batch's raw sums, in place, on the device."""
-    onehot = nn.functional.one_hot(labels, cfg.num_classes).float()         # [B, C]
-    sums["n"] += labels.shape[0]
-    sums["per_class_count"] += onehot.sum(dim=0)
+def _sum_shapes(spec: ModelSpec, cfg: TrainConfig) -> dict:
+    """The raw sums of an eval pass and their shapes, in their order in the
+    flat vector of ``_batch_sums``."""
+    C, D = cfg.num_classes, 1 if spec.task == "width" else 3
+    shapes = {"n": (), "loss": (), "metric": (), "per_class_count": (C,)}
+    shapes.update({"per_class_correct": (C,)} if spec.task in ("classify", "sign")
+                  else {"per_class_abs_err": (C, D)})
+    return shapes
+
+
+def _batch_sums(spec: ModelSpec, cfg: TrainConfig, model: nn.Module, batch: dict) -> torch.Tensor:
+    """One padded batch's raw sums over its valid rows, as one flat float32
+    vector in ``_sum_shapes``' order: the body of the JAX package's
+    ``make_device_eval_runner`` scan (every term weighted by ``valid``)."""
+    v = batch["valid"]
+    labels = batch["labels"]
+    inputs, target = _prepare_inputs(spec, cfg, batch, train=False)
+    outputs = model(*inputs)
+    onehot = nn.functional.one_hot(labels, cfg.num_classes).float() * v[:, None]      # [B, C], masked
+    sums = {"n": v.sum(), "per_class_count": onehot.sum(dim=0)}
     if spec.task == "classify":
         log_probs, _, pred = outputs
-        sums["loss"] -= log_probs.gather(1, target[:, None].long()).sum()
-        correct = (pred == target).float()
+        sums["loss"] = -(log_probs.gather(1, target[:, None].long())[:, 0] * v).sum()
+        correct = (pred == target).float() * v
     elif spec.task == "sign":
         prob, hard = outputs
         t = torch.where(target.reshape(prob.shape) > 0, 1.0, 0.0)
         p = prob.clamp(1e-7, 1 - 1e-7)
-        sums["loss"] -= (t * torch.log(p) + (1 - t) * torch.log(1 - p)).sum()
-        correct = (hard == torch.where(target.reshape(hard.shape) > 0, 1.0, -1.0))[:, 0].float()
+        sums["loss"] = (-(t * torch.log(p) + (1 - t) * torch.log(1 - p))[:, 0] * v).sum()
+        correct = (hard == torch.where(target.reshape(hard.shape) > 0, 1.0, -1.0))[:, 0].float() * v
     else:  # rotation / translation / width regression
         err = outputs - target.reshape(outputs.shape)
         per = err * err if cfg.loss_kind == "L2_loss" else err.abs()
-        sums["loss"] += per.mean(dim=-1).sum()
-        sums["metric"] += err.abs().mean(dim=-1).sum()
-        sums["per_class_abs_err"] += onehot.t() @ err.abs()
-        return
-    sums["metric"] += correct.sum()
-    sums["per_class_correct"] += onehot.t() @ correct
+        sums["loss"] = (per.mean(dim=-1) * v).sum()
+        sums["metric"] = (err.abs().mean(dim=-1) * v).sum()
+        sums["per_class_abs_err"] = onehot.t() @ (err.abs() * v[:, None])
+    if spec.task in ("classify", "sign"):
+        sums["metric"] = correct.sum()
+        sums["per_class_correct"] = onehot.t() @ correct
+    return torch.cat([sums[k].reshape(-1).float() for k in _sum_shapes(spec, cfg)])
+
+
+def _host_sums(spec: ModelSpec, cfg: TrainConfig, flat: torch.Tensor) -> dict:
+    """``_batch_sums``' flat vector (summed over a pass) as host numpy
+    arrays by name: the pass's one copy to the host."""
+    flat = flat.cpu().numpy()
+    host, lo = {}, 0
+    for k, shape in _sum_shapes(spec, cfg).items():
+        size = int(np.prod(shape, dtype=np.int64))
+        host[k] = flat[lo:lo + size].reshape(shape)
+        lo += size
+    return host
 
 
 def _finalize_eval(spec: ModelSpec, cfg: TrainConfig, sums: dict) -> dict:
@@ -187,26 +228,51 @@ def _finalize_eval(spec: ModelSpec, cfg: TrainConfig, sums: dict) -> dict:
     return result
 
 
+def eval_programs(model: nn.Module, device) -> StepProgramCache:
+    """The eval programs of ``model`` on ``device``, which the model owns
+    (a copy of the model starts with none): each is bound to this model's
+    tensors, and is made anew if one of them was replaced."""
+    device = program_device(device)
+    caches = model.__dict__.setdefault("_eval_programs", {})
+    if device not in caches:
+        caches[device] = StepProgramCache(device)
+    return caches[device]
+
+
+def _eval_sums(spec: ModelSpec, cfg: TrainConfig, model: nn.Module, batches: list[dict],
+               device: torch.device) -> dict:
+    """The raw sums of ``evaluate`` over padded batches already on
+    ``device``, on the host. A batch is one eval program (eval mode,
+    ``eval_programs``) per compute dtype, task and batch shapes: the batch
+    entries it reads are copied into its static inputs, the first batch runs
+    and captures it, every later batch replays it; the sums stay on the
+    device and come to the host in one copy."""
+    model.eval()
+    fields = tuple(sorted({"points", "labels", "valid", _TARGET_KEY[spec.task]}))
+
+    def fn(*static):
+        model.eval()
+        with torch.no_grad():
+            return _batch_sums(spec, cfg, model, dict(zip(fields, static)))
+
+    def bound():
+        return [*model.parameters(), *model.buffers()]
+
+    programs = eval_programs(model, device)
+    total = torch.zeros(sum(int(np.prod(s, dtype=np.int64)) for s in _sum_shapes(spec, cfg).values()),
+                        dtype=torch.float32, device=device)
+    for batch in batches:
+        inputs = [batch[k] for k in fields]
+        key = ("eval", spec.task, cfg.dtype, cfg.num_classes, cfg.loss_kind, cfg.compat_first3_mean,
+               tuple((tuple(x.shape), x.dtype) for x in inputs))
+        total += programs(key, fn, inputs, bound)
+    return _host_sums(spec, cfg, total)
+
+
 def _evaluate_batches(spec: ModelSpec, cfg: TrainConfig, model: nn.Module, batches: list[dict],
                       device: torch.device) -> dict:
-    """``evaluate`` over batches already on ``device``."""
-    model.eval()
-    C, D = cfg.num_classes, 1 if spec.task == "width" else 3
-    shapes = {"n": (), "loss": (), "metric": (), "per_class_count": (C,)}
-    shapes.update({"per_class_correct": (C,)} if spec.task in ("classify", "sign")
-                  else {"per_class_abs_err": (C, D)})
-    sums = {k: torch.zeros(shape, dtype=torch.float32, device=device) for k, shape in shapes.items()}
-    with torch.inference_mode():
-        for batch in batches:
-            inputs, target = _prepare_inputs(spec, cfg, batch, train=False)
-            _accumulate(spec, cfg, sums, model(*inputs), target, batch["labels"])
-        flat = torch.cat([v.reshape(-1) for v in sums.values()]).cpu().numpy()   # the one copy
-    host, lo = {}, 0
-    for k, shape in shapes.items():
-        size = int(np.prod(shape, dtype=np.int64))
-        host[k] = flat[lo:lo + size].reshape(shape)
-        lo += size
-    return _finalize_eval(spec, cfg, host)
+    """``evaluate`` over padded batches already on ``device``."""
+    return _finalize_eval(spec, cfg, _eval_sums(spec, cfg, model, batches, device))
 
 
 def evaluate(cfg: TrainConfig, model: nn.Module, ds: PoseDataset, device="cuda") -> dict:
@@ -295,7 +361,10 @@ def train(cfg: TrainConfig, train_ds: PoseDataset, test_ds: PoseDataset | None =
     split smaller than a batch, batches come from ``iter_batches`` on the
     host, shuffled by a numpy generator seeded with ``cfg.seed``, as the
     JAX package's per-step path. Either way a step leaves its loss and
-    metric on the device and the host reads them once per epoch.
+    metric on the device and the host reads them once per epoch. On the
+    card every step and every batch of the per-epoch eval is a replay of a
+    captured program (``steps.TrainStep``, ``_eval_sums``), captured at its
+    first call, which comes after a resume has restored the state.
 
     ``cfg.multihost`` joins the process group of the ``torchrun``
     environment (``env://``), the counterpart of
@@ -308,7 +377,8 @@ def train(cfg: TrainConfig, train_ds: PoseDataset, test_ds: PoseDataset | None =
     barrier; every rank reads ``latest.pt`` to resume and evaluates the
     test split. A preemption signal is honoured at an epoch's end there,
     when the ranks agree on it, so that all of them stop after the same
-    step.
+    step. The data-parallel step runs op by op (its NCCL all-reduces are
+    not captured).
     """
     # parallel/ imports train/, so it is imported here, when train() runs
     from pointnet_like_pose_estimation_tpu_torch.parallel import (

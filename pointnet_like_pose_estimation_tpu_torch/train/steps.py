@@ -3,11 +3,15 @@
 ``make_eval_step`` in ``train/steps.py`` of the JAX package).
 
 A train step is augment -> forward -> loss -> backward -> optimizer step,
-eagerly, with its loss and metric left on the device: nothing in a step
-waits for the card. Its random numbers (the augmentation's and each
-dropout site's) are drawn first, by ``draw_step`` from the state's
-generator, and then applied; a caller may draw them once and apply the
-same numbers on two devices.
+with its loss and metric left on the device: nothing in a step waits for
+the card. Its random numbers (the augmentation's and each dropout site's)
+are drawn first, by ``draw_step`` from the state's generator, and then
+applied; a caller may draw them once and apply the same numbers on two
+devices. As the JAX package jits its step, a step is one training program
+(``utils/programs.py`` ``StepProgramCache``): a CUDA graph captured at its
+first call and replayed at every later one; the draws stay outside the
+graph, made by the host in the eager step's order, so that both consume
+the same numbers from the same generator state.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from pointnet_like_pose_estimation_tpu_torch.data import augment as aug
 from pointnet_like_pose_estimation_tpu_torch.models import ModelSpec
 from pointnet_like_pose_estimation_tpu_torch.nn.layers import Dropout
 from pointnet_like_pose_estimation_tpu_torch.train.config import TrainConfig
+from pointnet_like_pose_estimation_tpu_torch.utils.programs import StepProgramCache, program_device
 
 _TARGET_KEY = {"classify": "labels", "rotation": "rot", "translation": "tran",
                "sign": "sign", "width": "width"}
@@ -83,10 +88,50 @@ def draw_step(cfg: TrainConfig, model: nn.Module, batch: dict, gen: torch.Genera
     }
 
 
-def make_train_step(spec: ModelSpec, cfg: TrainConfig, *,
-                    reduce_grads: Callable[[list[torch.Tensor]], None] | None = None) -> Callable:
-    """``train_step(model, optimizer, batch, gen=None, *, draws=None) ->
-    {"loss", "metric"}``, both 0-d tensors on the device.
+def _batch_fields(spec: ModelSpec, cfg: TrainConfig) -> tuple[str, ...]:
+    """The entries of a raw batch that a train step reads."""
+    fields = {"points", _TARGET_KEY[spec.task]}
+    if spec.input_kind != "xyz":
+        fields.add("labels")
+    if cfg.augment and cfg.augment_consistent_labels:
+        fields.update(("tran", "width"))
+    return tuple(sorted(fields))
+
+
+def _draw_into(draws: dict, gen: torch.Generator) -> None:
+    """Refill the tensors of ``draws`` (a ``draw_step`` result) from
+    ``gen`` in ``draw_step``'s order: the numbers ``draw_step`` would give
+    from the same state, drawn into tensors a captured step reads."""
+    for part in draws.values():
+        for t in (part or {}).values():
+            t.uniform_(generator=gen)
+
+
+def _draw_perm(gen: torch.Generator, n: int, count: int) -> torch.Tensor:
+    """An epoch's permutation of ``n`` rows from ``gen``, its first ``count``."""
+    return torch.randperm(n, generator=gen, device=gen.device)[:count]
+
+
+def _bound_tensors(model: nn.Module, optimizer: torch.optim.Optimizer) -> list:
+    """The tensors a train step reads or writes besides its inputs:
+    parameters, buffers, gradients (None where there is none yet), the
+    optimizer's state and its learning rates. A graph bakes a float rate
+    in, so a rate must be a tensor on the card (``make_optimizer``)."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    out = [*model.parameters(), *model.buffers(), *(p.grad for p in params)]
+    for p in params:
+        out.extend(v for v in optimizer.state.get(p, {}).values() if isinstance(v, torch.Tensor))
+    for group in optimizer.param_groups:
+        if not isinstance(group["lr"], torch.Tensor) and params[0].is_cuda:
+            raise ValueError("a train step on the card reads the learning rate from a tensor: build the "
+                             "optimizer with make_optimizer")
+        out.append(group["lr"])
+    return out
+
+
+class TrainStep:
+    """``step(model, optimizer, batch, gen=None, *, draws=None) -> {"loss",
+    "metric"}``, both 0-d tensors on the device; ``make_train_step``.
 
     The step draws its random numbers from ``gen`` (``draw_step``) unless
     ``draws`` are given, puts the model in train mode (the dropout sites in
@@ -94,14 +139,30 @@ def make_train_step(spec: ModelSpec, cfg: TrainConfig, *,
     loss and the backward, gives every parameter the loss does not reach a
     zero gradient (so that L2 decay moves it, as in optax), hands the
     gradients to ``reduce_grads`` (the data-parallel step's all-reduce) and
-    steps the optimizer. The gradients stay in ``.grad`` after the step.
-    """
-    loss_kw = _loss_kwargs(spec, cfg)
+    steps the optimizer. The gradients stay in ``.grad`` after the step,
+    each at one address (``zero_grad(set_to_none=False)``).
 
-    def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, batch: dict,
-                   gen: torch.Generator | None = None, *, draws: dict | None = None) -> dict:
-        if draws is None:
-            draws = draw_step(cfg, model, batch, gen)
+    A call is one training program (``utils.programs.StepProgramCache``,
+    the counterpart of the JAX package's jitted, donated step) per model,
+    optimizer, compute dtype and shapes of the batch and the draws: the
+    batch entries the step reads and the draws are copied into its static
+    inputs, the first call runs the step and captures it, every later call
+    replays the graph on the card (on the CPU the program is the step
+    itself). A replay's loss and metric are the program's own tensors,
+    which its next call overwrites. The data-parallel step (``reduce_grads``)
+    runs ``eager``, op by op. ``eager`` is the same step without a program;
+    ``programs`` holds them, one cache a device.
+    """
+
+    def __init__(self, spec: ModelSpec, cfg: TrainConfig,
+                 reduce_grads: Callable[[list[torch.Tensor]], None] | None = None):
+        self.spec, self.cfg, self.reduce_grads = spec, cfg, reduce_grads
+        self.fields = _batch_fields(spec, cfg)
+        self.loss_kw = _loss_kwargs(spec, cfg)
+        self.programs: dict[torch.device, StepProgramCache] = {}
+
+    def run(self, model: nn.Module, optimizer: torch.optim.Optimizer, batch: dict, draws: dict) -> dict:
+        """The step's body on its draws (what a program captures)."""
         model.train()
         sites = _dropouts(model)
         for name, m in sites:
@@ -110,61 +171,155 @@ def make_train_step(spec: ModelSpec, cfg: TrainConfig, *,
             else:
                 m.uniforms = draws["dropout"][name]
         try:
-            inputs, target = _prepare_inputs(spec, cfg, batch, train=True, draws=draws["augment"])
+            inputs, target = _prepare_inputs(self.spec, self.cfg, batch, train=True, draws=draws["augment"])
             outputs = model(*inputs)
         finally:
             for _, m in sites:
                 m.uniforms = None
-        loss = spec.loss(outputs, target, **loss_kw)
+        loss = self.spec.loss(outputs, target, **self.loss_kw)
         optimizer.zero_grad(set_to_none=False)
         loss.backward()
         params = [p for group in optimizer.param_groups for p in group["params"]]
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        if reduce_grads is not None:
-            reduce_grads([p.grad for p in params])
+        if self.reduce_grads is not None:
+            self.reduce_grads([p.grad for p in params])
         optimizer.step()
         with torch.no_grad():
-            metric = spec.metric(outputs, target)
+            metric = self.spec.metric(outputs, target)
         return {"loss": loss.detach(), "metric": metric}
 
-    return train_step
+    def eager(self, model: nn.Module, optimizer: torch.optim.Optimizer, batch: dict,
+              gen: torch.Generator | None = None, *, draws: dict | None = None) -> dict:
+        if draws is None:
+            draws = draw_step(self.cfg, model, batch, gen)
+        return self.run(model, optimizer, batch, draws)
+
+    def cache(self, device) -> StepProgramCache:
+        """The programs of this step on ``device``."""
+        device = program_device(device)
+        if device not in self.programs:
+            self.programs[device] = StepProgramCache(device)
+        return self.programs[device]
+
+    def __call__(self, model: nn.Module, optimizer: torch.optim.Optimizer, batch: dict,
+                 gen: torch.Generator | None = None, *, draws: dict | None = None) -> dict:
+        if self.reduce_grads is not None:
+            return self.eager(model, optimizer, batch, gen, draws=draws)
+        if draws is None:
+            draws = draw_step(self.cfg, model, batch, gen)
+        parts = {part: None if d is None else tuple(d) for part, d in draws.items()}
+        inputs = [batch[k] for k in self.fields]
+        inputs += [draws[part][k] for part, names in parts.items() for k in names or ()]
+
+        def fn(*static):
+            it = iter(static)
+            b = {k: next(it) for k in self.fields}
+            d = {part: None if names is None else {k: next(it) for k in names} for part, names in parts.items()}
+            return self.run(model, optimizer, b, d)
+
+        key = (id(model), id(optimizer), self.cfg.dtype, tuple(parts.items()),
+               tuple((tuple(x.shape), x.dtype) for x in inputs))
+        return self.cache(batch["points"].device)(key, fn, inputs, lambda: _bound_tensors(model, optimizer))
 
 
-def make_epoch_runner(spec: ModelSpec, cfg: TrainConfig, num_steps: int) -> Callable:
+def make_train_step(spec: ModelSpec, cfg: TrainConfig, *,
+                    reduce_grads: Callable[[list[torch.Tensor]], None] | None = None) -> TrainStep:
+    """The train step of ``spec`` under ``cfg`` (``TrainStep``)."""
+    return TrainStep(spec, cfg, reduce_grads)
+
+
+class EpochRunner:
     """``run_epoch(model, optimizer, data, gen, stop=None) -> (sums, steps)``
     over a split already on the device (``data``: a dict of ``[M, ...]``
-    tensors): one permutation drawn from ``gen`` on the device, the last
-    partial batch dropped (``num_steps = M // batch_size``), each batch
-    gathered by index on the device, and the loss and metric summed there.
-    ``sums`` is a ``[2]`` tensor on the device, the one thing the caller
-    copies to the host per epoch; ``stop()`` is asked before each step
-    (preemption) and ``steps`` counts those that ran.
+    tensors), the counterpart of ``make_device_epoch_runner``: one
+    permutation drawn from ``gen`` on the device, the last partial batch
+    dropped (``num_steps = M // batch_size``), each batch gathered by index
+    on the device, and the loss and metric summed there. ``sums`` is a
+    ``[2]`` tensor on the device, the one thing the caller copies to the
+    host per epoch; ``stop()`` is asked before each step (preemption) and
+    ``steps`` counts those that ran.
 
-    The JAX package runs the epoch as scans of ``cfg.epoch_chunk`` steps to
-    bound the time of one TPU dispatch; the port launches eagerly and has
-    no such bound.
+    Each step is one replay of one training program (``TrainStep``'s
+    cache), captured at the epoch's first step: it reads its batch from the
+    split through the epoch's permutation and a step counter on the device,
+    its draws from tensors that the host refills from ``gen`` before each
+    replay in ``draw_step``'s order, and adds its loss and metric to the
+    sums, so that a step costs the host its draws (one launch a draw) and
+    one replay. The JAX package runs the epoch as scans of
+    ``cfg.epoch_chunk`` steps to bound one TPU dispatch; the port replays
+    one graph a step. ``eager`` is the same epoch without a program.
     """
-    step = make_train_step(spec, cfg)
-    B = cfg.batch_size
 
-    def run_epoch(model, optimizer, data: dict, gen: torch.Generator, stop=None):
-        n = data["labels"].shape[0]
-        perm = torch.randperm(n, generator=gen, device=gen.device)[: num_steps * B]
-        perm = perm.to(data["labels"].device).reshape(num_steps, B)
+    def __init__(self, spec: ModelSpec, cfg: TrainConfig, num_steps: int):
+        self.step = TrainStep(spec, cfg)
+        self.cfg, self.num_steps = cfg, num_steps
+        self._static: dict = {}
+
+    def _permutation(self, data: dict, gen: torch.Generator) -> torch.Tensor:
+        B = self.cfg.batch_size
+        perm = _draw_perm(gen, data["labels"].shape[0], self.num_steps * B)
+        return perm.to(data["labels"].device).reshape(self.num_steps, B)
+
+    def eager(self, model, optimizer, data: dict, gen: torch.Generator, stop=None):
+        perm = self._permutation(data, gen)
         sums = torch.zeros(2, dtype=torch.float32, device=data["labels"].device)
         done = 0
-        for i in range(num_steps):
+        for i in range(self.num_steps):
             if stop is not None and stop():
                 break
-            batch = {k: v[perm[i]] for k, v in data.items()}
-            out = step(model, optimizer, batch, gen)
+            out = self.step.eager(model, optimizer, {k: v[perm[i]] for k, v in data.items()}, gen)
             sums += torch.stack([out["loss"], out["metric"]])
             done += 1
         return sums, done
 
-    return run_epoch
+    def _buffers(self, key, model, data: dict) -> dict:
+        """The static tensors of a program: the epoch's permutation, the
+        step counter, the sums and the draws."""
+        if key not in self._static:
+            device = data["labels"].device
+            first = {k: data[k][: self.cfg.batch_size] for k in self.step.fields}
+            self._static[key] = {
+                "perm": torch.zeros(self.num_steps, self.cfg.batch_size, dtype=torch.long, device=device),
+                "at": torch.zeros(1, dtype=torch.long, device=device),
+                "sums": torch.zeros(2, dtype=torch.float32, device=device),
+                "draws": draw_step(self.cfg, model, first, torch.Generator(device=device)),
+            }
+        return self._static[key]
+
+    def __call__(self, model, optimizer, data: dict, gen: torch.Generator, stop=None):
+        fields, step = self.step.fields, self.step
+        key = (id(model), id(optimizer), "epoch", self.cfg.dtype,
+               tuple((k, tuple(data[k].shape), data[k].dtype) for k in fields))
+        static = self._buffers(key, model, data)
+        static["perm"].copy_(self._permutation(data, gen))
+        static["at"].zero_()
+        static["sums"].zero_()
+
+        def fn():
+            idx = static["perm"].index_select(0, static["at"])[0]
+            out = step.run(model, optimizer, {k: data[k].index_select(0, idx) for k in fields}, static["draws"])
+            static["sums"] += torch.stack([out["loss"], out["metric"]])
+            static["at"] += 1
+
+        def bound():
+            return [*_bound_tensors(model, optimizer), *(data[k] for k in fields)]
+
+        programs = step.cache(data["labels"].device)
+        done = 0
+        for _ in range(self.num_steps):
+            if stop is not None and stop():
+                break
+            _draw_into(static["draws"], gen)
+            programs(key, fn, (), bound)
+            done += 1
+        return static["sums"].clone(), done
+
+
+def make_epoch_runner(spec: ModelSpec, cfg: TrainConfig, num_steps: int) -> EpochRunner:
+    """The device-resident epoch of ``spec`` under ``cfg`` (``EpochRunner``)."""
+    return EpochRunner(spec, cfg, num_steps)
 
 
 def make_eval_step(spec: ModelSpec, cfg: TrainConfig) -> Callable:

@@ -1,6 +1,9 @@
 """Compiled programs of fixed shapes: the port's counterpart of ``jax.jit``
 in the JAX package's serving path (``pipeline/infer.py`` ``_infer_fn`` and
-``_scene_infer_fn``, ``models/fast_infer.py``'s executors).
+``_scene_infer_fn``, ``models/fast_infer.py``'s executors; ``ProgramCache``)
+and its training path (``train/steps.py`` ``make_train_step`` and
+``make_device_epoch_runner``, ``make_device_eval_runner``;
+``StepProgramCache``, whose every call runs its function once, below).
 
 JAX traces a function once per shape bucket and dispatches the compiled
 program on every later call. Here a function of tensors is captured once
@@ -40,6 +43,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import time
 from typing import Any, Callable
 
@@ -62,21 +66,35 @@ def _launch_counts() -> dict[str, int]:
 @dataclasses.dataclass
 class _Program:
     """One function at one bucket: its static inputs and, on a card, its
-    graph, its static outputs and the launches its capture recorded."""
+    graph, its static outputs and the launches its capture recorded. A step
+    program also keeps the tensors it is bound to (``held``) and their
+    addresses."""
 
     fn: Callable
     inputs: tuple[torch.Tensor, ...]
     graph: Any = None
     outputs: Any = None
     launches: dict[str, int] = dataclasses.field(default_factory=dict)
+    held: list = dataclasses.field(default_factory=list)
+    addresses: tuple = ()
 
 
-class ProgramCache:
-    """Programs of one device, keyed by bucket; see the module docstring.
+def program_device(device) -> torch.device:
+    """``device`` with its index: ``cuda`` is the current card, so that a
+    cache kept by device is found under ``cuda`` and ``cuda:0`` alike."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
-    Counters: ``captures`` (programs made, each a capture on a card),
-    ``replays`` (calls served), ``evictions``, ``capture_seconds`` (host
-    time of the warm-ups and captures) and, per key, ``launches(key)``."""
+
+def _addresses(tensors) -> tuple:
+    return tuple(0 if t is None else t.data_ptr() for t in tensors)
+
+
+class _Cache:
+    """What both caches share: the programs by key (least recently used
+    first), the pool, the counters, the input copies and the capture."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -90,6 +108,11 @@ class ProgramCache:
     def __len__(self) -> int:
         return len(self._programs)
 
+    def __reduce__(self):
+        # a copy of a cache (``copy.deepcopy`` of a model that owns one) is
+        # an empty cache: graphs are bound to the original's tensors
+        return type(self), (self.device,)
+
     def keys(self) -> list:
         """The keys held, least recently used first."""
         return list(self._programs)
@@ -98,58 +121,57 @@ class ProgramCache:
         """Kernel launches, by kernel name, that one replay of ``key`` makes."""
         return dict(self._programs[key].launches)
 
-    def __call__(self, key, fn: Callable, inputs):
-        inputs = tuple(inputs)
-        with torch.inference_mode():
-            prog = self._programs.get(key)
-            if prog is None:
-                prog = self._capture(fn, inputs)
-                self._programs[key] = prog
-                if len(self._programs) > MAX_PROGRAMS:
-                    self._programs.popitem(last=False)
-                    self.evictions += 1
-            else:
-                self._programs.move_to_end(key)
-                self._load(key, prog, inputs)
-            return self._replay(prog)
+    def _store(self, key, prog: _Program) -> None:
+        self._programs[key] = prog
+        if len(self._programs) > MAX_PROGRAMS:
+            self._programs.popitem(last=False)
+            self.evictions += 1
 
-    @staticmethod
-    def _load(key, prog: _Program, inputs: tuple) -> None:
+    def _load(self, key, prog: _Program, inputs: tuple) -> None:
+        what = f"{type(self).__name__} {key}"
         if len(inputs) != len(prog.inputs):
-            raise ValueError(f"ProgramCache {key}: {len(inputs)} inputs, the program takes {len(prog.inputs)}")
+            raise ValueError(f"{what}: {len(inputs)} inputs, the program takes {len(prog.inputs)}")
         for static, new in zip(prog.inputs, inputs):
             if new.shape != static.shape or new.dtype != static.dtype:
-                raise ValueError(f"ProgramCache {key}: input {new.dtype} {tuple(new.shape)}, the program "
+                raise ValueError(f"{what}: input {new.dtype} {tuple(new.shape)}, the program "
                                  f"takes {static.dtype} {tuple(static.shape)}")
             static.copy_(new)
 
-    def _capture(self, fn: Callable, inputs: tuple) -> _Program:
-        t0 = time.perf_counter()
+    def _static(self, fn: Callable, inputs: tuple) -> _Program:
         # the cache's own copies: a caller's tensor on the device is not aliased
-        static = tuple(x.to(self.device, copy=True) for x in inputs)
-        prog = _Program(fn, static)
-        if self.device.type == "cuda":
-            current = torch.cuda.current_stream(self.device)
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(current)
-            with torch.cuda.stream(side):
-                fn(*static)
-            current.wait_stream(side)
-            if self.pool is None:
-                self.pool = torch.cuda.graph_pool_handle()
-            before = _launch_counts()
-            graph = torch.cuda.CUDAGraph()
-            try:
-                with torch.cuda.graph(graph, pool=self.pool):
-                    prog.outputs = fn(*static)
-            finally:
-                for name, count in _launch_counts().items():
-                    prog.launches[name] = count - before[name]
-                    COUNTED[name].launches = before[name]
-            prog.graph = graph
-        self.captures += 1
-        self.capture_seconds += time.perf_counter() - t0
-        return prog
+        return _Program(fn, tuple(x.to(self.device, copy=True) for x in inputs))
+
+    def _warm_up(self, prog: _Program):
+        """``fn`` once on a side stream, which builds the kernels' libraries
+        and sets their attributes (neither may happen during a capture)."""
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            out = prog.fn(*prog.inputs)
+        current.wait_stream(side)
+        return out
+
+    def _capture(self, prog: _Program) -> None:
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        before = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        # no collection while capturing: a graph the collector frees then (one
+        # held in a reference cycle, as a program's function and its owner
+        # make) resets itself, which a capture refuses, and the capture ends
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                prog.outputs = prog.fn(*prog.inputs)
+        finally:
+            if collecting:
+                gc.enable()
+            for name, count in _launch_counts().items():
+                prog.launches[name] = count - before[name]
+                COUNTED[name].launches = before[name]
+        prog.graph = graph
 
     def _replay(self, prog: _Program):
         self.replays += 1
@@ -159,3 +181,96 @@ class ProgramCache:
         for name, count in prog.launches.items():
             COUNTED[name].launches += count
         return prog.outputs
+
+
+class ProgramCache(_Cache):
+    """Programs of one device, keyed by bucket; see the module docstring.
+
+    Counters: ``captures`` (programs made, each a capture on a card),
+    ``replays`` (calls served), ``evictions``, ``capture_seconds`` (host
+    time of the warm-ups and captures) and, per key, ``launches(key)``."""
+
+    def __call__(self, key, fn: Callable, inputs):
+        inputs = tuple(inputs)
+        with torch.inference_mode():
+            prog = self._programs.get(key)
+            if prog is None:
+                prog = self._make(fn, inputs)
+                self._store(key, prog)
+            else:
+                self._programs.move_to_end(key)
+                self._load(key, prog, inputs)
+            return self._replay(prog)
+
+    def _make(self, fn: Callable, inputs: tuple) -> _Program:
+        t0 = time.perf_counter()
+        prog = self._static(fn, inputs)
+        if self.device.type == "cuda":
+            self._warm_up(prog)
+            self._capture(prog)
+        self.captures += 1
+        self.capture_seconds += time.perf_counter() - t0
+        return prog
+
+
+class StepProgramCache(_Cache):
+    """Programs whose every call runs their function exactly once: a train
+    step, which a second run would apply twice, and one batch of an eval
+    pass, whose sums a second run would count twice.
+
+        programs = StepProgramCache(device)
+        out = programs(key, fn, inputs, bound)
+
+    ``fn(*inputs)`` runs with autograd as the caller has it, so a train
+    step's backward and optimizer step are captured with its forward.
+    ``bound()`` lists the tensors ``fn`` reads or writes besides its inputs
+    (parameters, gradients, buffers, optimizer state, a resident split; None
+    for a gradient not yet made): the graph is bound to them.
+
+    The first call of a key copies the inputs into static tensors and runs
+    ``fn`` on them once on a side stream: that run is the call's own, and
+    its outputs are handed back as they are. ``fn`` is then captured on the
+    static tensors into a graph on the cache's pool, and every later call
+    copies its inputs in and replays it, handing back the static outputs,
+    which the next call of the key overwrites. A later call whose
+    ``bound()`` tensors are no longer the ones the graph was captured on (a
+    parameter replaced, a gradient set to None, optimizer state loaded
+    anew) makes its program anew, as a first call: no graph runs over
+    tensors that were replaced. A program keeps a reference to every bound
+    tensor, so that their memory goes to no other tensor while its graph
+    may write there.
+
+    A failed capture raises; there is no eager fallback. On the CPU a
+    program is ``fn``, called on the static inputs at every call. The
+    launches of a first call ran and stay counted; a capture's are taken
+    back and added at each replay, as in ``ProgramCache``. Counters as
+    there, and ``remade``: programs made anew over replaced tensors."""
+
+    def __init__(self, device):
+        super().__init__(device)
+        self.remade = 0
+
+    def __call__(self, key, fn: Callable, inputs, bound: Callable[[], Any] = tuple):
+        inputs = tuple(inputs)
+        prog = self._programs.get(key)
+        if prog is not None:
+            if _addresses(bound()) == prog.addresses:
+                self._programs.move_to_end(key)
+                self._load(key, prog, inputs)
+                return self._replay(prog)
+            del self._programs[key]
+            self.remade += 1
+        t0 = time.perf_counter()
+        prog = self._static(fn, inputs)
+        if self.device.type == "cuda":
+            out = self._warm_up(prog)
+            prog.held = list(bound())
+            self._capture(prog)
+        else:
+            out = fn(*prog.inputs)
+            prog.held = list(bound())
+        prog.addresses = _addresses(prog.held)
+        self._store(key, prog)
+        self.captures += 1
+        self.capture_seconds += time.perf_counter() - t0
+        return out

@@ -23,6 +23,17 @@ group (the two CUDA kernels, matrix products, gather and scatter, the
 reductions of BatchNorm and max, the optimizer, other elementwise),
 launches, and the device busy share.
 
+Each train step is a replay of its training program (a CUDA graph,
+train/steps.py) but the first; then one epoch of the epoch runner on the
+resident split (train/steps.py make_epoch_runner; divide by its steps).
+
+    python3 scripts/profile_torch_serving.py --train-against build/parent [B ...]
+
+runs that train profile of pointnet2_cls_ssg with the package of another
+checkout (say the parent commit unpacked by ``git archive``) and with this
+one, in the order other, this, this, other, each in a process of its own
+(``--train-root DIR [B ...]`` is one such turn).
+
     python3 scripts/profile_torch_serving.py --train-dp pointnet2_cls_ssg [B ...]
 
 profiles, at each batch size, the same train step and then the
@@ -47,6 +58,7 @@ the other checkout and with this one, in the same order, each in a process of
 its own (``--profile-root DIR`` is one such turn).
 """
 
+import gc
 import json
 import os
 import statistics
@@ -56,7 +68,8 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the package comes from this checkout, or from the one named by --root
-PACKAGE_ROOT = os.path.abspath(sys.argv[2]) if sys.argv[1:2] in (["--root"], ["--profile-root"]) else ROOT
+PACKAGE_ROOT = (os.path.abspath(sys.argv[2]) if sys.argv[1:2] in (["--root"], ["--profile-root"], ["--train-root"])
+                else ROOT)
 sys.path.insert(0, PACKAGE_ROOT)
 
 import numpy as np
@@ -187,12 +200,17 @@ def train_profile(name: str, batch_sizes: list[int], data_parallel: bool = False
     ``data_parallel``, each followed by the DP step in a world of one."""
     from pointnet_like_pose_estimation_tpu_torch import parallel
     from pointnet_like_pose_estimation_tpu_torch.data import build_dataset, load_dataset
-    from pointnet_like_pose_estimation_tpu_torch.train import TrainConfig, build_state, make_train_step
+    from pointnet_like_pose_estimation_tpu_torch.train import (
+        TrainConfig,
+        build_state,
+        make_epoch_runner,
+        make_train_step,
+    )
     from pointnet_like_pose_estimation_tpu_torch.train.loop import _device_data
 
     data = _device_data(load_dataset(build_dataset(80, seed=0), "train"), torch.device("cuda"))
     n = data["labels"].shape[0]
-    steps = {"train step": make_train_step}
+    steps = {"train step": make_train_step, "epoch": None}
     if data_parallel:
         parallel.init_process_group("cuda")
         mesh = parallel.make_mesh()
@@ -202,15 +220,26 @@ def train_profile(name: str, batch_sizes: list[int], data_parallel: bool = False
         for kind, make_step in steps.items():
             cfg = TrainConfig.for_model(name, batch_size=B)
             spec, state = build_state(cfg)
-            step = make_step(spec, cfg)
+            if make_step is None:                   # an epoch of the runner on the resident split
+                run_epoch = make_epoch_runner(spec, cfg, n // B)
 
-            def one():
-                idx = torch.randint(0, n, (B,), generator=state.generator, device="cuda")
-                step(state.model, state.optimizer, {k: v[idx] for k, v in data.items()}, state.generator)
+                def one():
+                    run_epoch(state.model, state.optimizer, data, state.generator)
+
+                kind = f"epoch ({n // B} steps)"
+            else:
+                step = make_step(spec, cfg)
+
+                def one():
+                    idx = torch.randint(0, n, (B,), generator=state.generator, device="cuda")
+                    step(state.model, state.optimizer, {k: v[idx] for k, v in data.items()}, state.generator)
 
             key = f"{kind} {name} B={B}"
             report[key] = profiled(one, REQUESTS, train_group)
             print(json.dumps({key: report[key]}, indent=1), flush=True)
+            one = state = step = run_epoch = None   # and the step's graph pool with them
+            gc.collect()
+            torch.cuda.empty_cache()
     if data_parallel:
         torch.distributed.destroy_process_group()
     print(json.dumps({"card": card_line(), "profile": report}))
@@ -222,6 +251,13 @@ def main():
     if sys.argv[1:2] in (["--train"], ["--train-dp"]):
         return train_profile(sys.argv[2], [int(b) for b in sys.argv[3:]] or [24, 256],
                              data_parallel=sys.argv[1] == "--train-dp")
+    if sys.argv[1:2] == ["--train-root"]:
+        print(json.dumps({"package": PACKAGE_ROOT}), flush=True)
+        return train_profile("pointnet2_cls_ssg", [int(b) for b in sys.argv[3:]] or [24, 256])
+    if sys.argv[1:2] == ["--train-against"]:
+        me = [sys.executable, os.path.abspath(__file__), "--train-root"]
+        sys.exit(max(subprocess.run([*me, root, *sys.argv[3:]]).returncode
+                     for root in (sys.argv[2], ROOT, ROOT, sys.argv[2])))
     if sys.argv[1:2] in (["--latency-against"], ["--profile-against"]):
         turn = "--root" if sys.argv[1] == "--latency-against" else "--profile-root"
         me = [sys.executable, os.path.abspath(__file__), turn]

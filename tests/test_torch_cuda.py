@@ -649,3 +649,336 @@ def test_cluster_point_truncation_is_a_replay(card, monkeypatch):
                               for n in sizes]).astype(np.float32)
         np.testing.assert_array_equal(pp.cluster_point(pts, device="cuda"), pp.cluster_point(pts, device="cpu"))
     assert (programs.captures - c0, programs.replays - r0) == (1, 2)
+
+
+# --- the training programs (train/steps.py, train/loop.py) ---------------------------------------
+
+# The programmed step against the eager step on the card. Both run the same
+# kernels on the same inputs, but the backward of torch.gather (index_points)
+# is an atomic scatter-add whose sums come in another order each run, so two
+# eager runs already part: a gradient by rounding, and with Adam a parameter
+# whose gradient is noise by a learning rate a step (Adam's step is the rate
+# times the sign), which of them changing from run to run. So no element is
+# held: a loss or metric within TRAIN_TOL (for Adam's epochs, within twice
+# the gap between two eager runs A and B plus TRAIN_TOL), and after the steps
+# the parameters and the BatchNorm statistics as vectors, their L2 distance
+# from the eager run's within MOVED of how far the eager run's moved from the
+# start (a step that read a stale rate or stale state parts them by a tenth
+# of that or more). The distances are printed.
+TRAIN_TOL = 1e-4
+MOVED = 1e-2
+
+
+def _copies(card, name, n, B=24, experiment=None, **overrides):
+    """``n`` copies of a model on the card with its optimizer and scheduler
+    (``make_optimizer``) and a generator, all in one state; the train split
+    of a seeded dataset on the card (77 clouds); the cfg."""
+    import copy
+
+    from pointnet_like_pose_estimation_tpu_torch.data import build_dataset, load_dataset
+    from pointnet_like_pose_estimation_tpu_torch.models import build_model
+    from pointnet_like_pose_estimation_tpu_torch.train import TrainConfig, load_checkpoint, make_optimizer
+    from pointnet_like_pose_estimation_tpu_torch.train.loop import _device_data
+
+    cfg = TrainConfig.for_model(name, batch_size=B, **overrides)
+    if experiment is None:
+        model = _seeded(name, 40)
+    else:
+        model, _ = load_checkpoint(os.path.join(ROOT, "log", experiment, "checkpoints", "best.msgpack"),
+                                   build_model(name))
+    model = model.to(card)
+    first = (model, *make_optimizer(cfg, model.parameters()))
+    copies = [first] + [copy.deepcopy(first) for _ in range(n - 1)]
+    gens = []
+    for _ in range(n):
+        gens.append(torch.Generator(device=card))
+        gens[-1].set_state(torch.Generator(device=card).manual_seed(17).get_state())
+    data = _device_data(load_dataset(build_dataset(15, seed=3), "train"), card)
+    return cfg, [(*c, g) for c, g in zip(copies, gens)], data
+
+
+def _within_spread(what, got, a, b, tol) -> tuple[float, float]:
+    """A loss or metric ``got`` against ``a``: within twice ``b``'s distance
+    from ``a`` plus ``tol``; returns both distances."""
+    mine, theirs = float((got - a).abs()), float((b - a).abs())
+    assert mine <= 2 * theirs + tol, f"{what}: {mine} from the eager run, which is {theirs} from another"
+    return mine, theirs
+
+
+def _held_by_movement(model, eager, start, what) -> dict:
+    """The parameters and statistics of ``model`` against the eager run's
+    (see MOVED); ``start`` is the state both began from. Returns, by kind,
+    the distance over the eager run's movement."""
+    def vec(state, keys):
+        return torch.cat([state[k].detach().double().reshape(-1) for k in keys])
+
+    got, want = model.state_dict(), eager.state_dict()
+    kinds = {"parameter": [k for k, _ in eager.named_parameters()],
+             "statistic": [k for k in want if k.endswith(("running_mean", "running_var"))]}
+    ratios = {}
+    for kind, keys in kinds.items():
+        gap = float((vec(got, keys) - vec(want, keys)).norm())
+        moved = float((vec(want, keys) - vec(start, keys)).norm())
+        ratios[kind] = gap / moved
+        assert gap <= MOVED * moved, f"{what}: {kind}s {gap} from the eager run's, which moved {moved}"
+    return ratios
+
+
+@pytest.mark.parametrize("name,experiment,launches,optimizer", [
+    ("pointnet2_cls_ssg", "classification/r3_pointnet2_cls_ssg", 2, "sgd"),
+    ("sign_msg", "pose/r5_sign_msg", 1, "adam"),
+    ("pointnet_cls", None, 0, "adam"),
+])
+def test_programmed_train_step_equals_the_eager_step(card, name, experiment, launches, optimizer):
+    """Three steps at batch 24 with augmentation and dropout drawn from the
+    generator: the programmed step (captured at its first call, replayed
+    at the next two) against the eager step on deep copies of the model,
+    optimizer and generator: each step's loss and metric within TRAIN_TOL,
+    the parameters and statistics after the three within MOVED of their
+    movement; the generators consume the same draws; FPS and the ball query
+    launch ``launches`` times a call, each call one run of the step.
+    ``pointnet2_cls_ssg`` trains with SGD, whose step is linear in the
+    gradient, so that the gather's rounding does not grow into Adam's
+    flipped signs over the steps (the epochs below hold Adam)."""
+    from pointnet_like_pose_estimation_tpu_torch.models import get_model_spec
+    from pointnet_like_pose_estimation_tpu_torch.train import make_train_step
+
+    cfg, runs, data = _copies(card, name, 2, experiment=experiment, optimizer=optimizer)
+    (model, opt, _, gen), (a, a_opt, _, a_gen) = runs
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    step = make_train_step(get_model_spec(name), cfg)
+    for i in range(3):
+        batch = {k: v[24 * i:24 * (i + 1)] for k, v in data.items()}
+        f0, b0 = fps.launches, ball_query_multi.launches
+        got = step(model, opt, batch, gen)
+        torch.cuda.synchronize()
+        assert (fps.launches - f0, ball_query_multi.launches - b0) == (launches, launches)
+        got = {k: v.clone() for k, v in got.items()}
+        want = step.eager(a, a_opt, batch, a_gen)
+        for k in ("loss", "metric"):
+            torch.testing.assert_close(got[k], want[k], rtol=TRAIN_TOL, atol=TRAIN_TOL, msg=f"step {i} {k}")
+        assert torch.equal(gen.get_state(), a_gen.get_state())
+    programs = step.cache(card)
+    assert (programs.captures, programs.replays, programs.remade) == (1, 2, 0)
+    print(f"{name} ({optimizer}): 3 steps, programmed against eager over the movement "
+          f"{_held_by_movement(model, a, start, name)}")
+
+
+def test_programmed_epochs_cross_a_steplr_boundary_as_the_eager_ones(card):
+    """pointnet2_cls_ssg from the committed r3 checkpoint on the resident
+    split (77 clouds, 3 steps of 24 an epoch), StepLR every epoch: two
+    programmed epochs (one program, captured at the first step and replayed
+    at the other 5) against two eager runs of the two epochs: the epochs'
+    sums (see TRAIN_TOL), the learning rate tensor (filled in place: 1e-3,
+    then 7e-4, then 4.9e-4), each epoch's movement of the parameters within
+    MOVED of the eager run's (so the second epoch read the second rate), and
+    the state after both (MOVED)."""
+    from pointnet_like_pose_estimation_tpu_torch.models import get_model_spec
+    from pointnet_like_pose_estimation_tpu_torch.train import make_epoch_runner
+
+    cfg, runs, data = _copies(card, "pointnet2_cls_ssg", 3, experiment="classification/r3_pointnet2_cls_ssg",
+                              lr_step_epochs=1)
+    (model, opt, sched, gen), (a, a_opt, a_sched, a_gen), (b, b_opt, b_sched, b_gen) = runs
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    rate = opt.param_groups[0]["lr"]
+    runner = make_epoch_runner(get_model_spec(cfg.model), cfg, 3)
+
+    def params(m):
+        return torch.cat([p.detach().double().reshape(-1) for p in m.parameters()])
+
+    for epoch in range(2):
+        before, a_before = params(model), params(a)
+        f0 = fps.launches
+        sums, done = runner(model, opt, data, gen)
+        torch.cuda.synchronize()
+        assert done == 3 and fps.launches - f0 == 2 * 3
+        want, want_done = runner.eager(a, a_opt, data, a_gen)
+        other, _ = runner.eager(b, b_opt, data, b_gen)
+        _within_spread(f"epoch {epoch} loss sum", sums[0], want[0], other[0], TRAIN_TOL)
+        _within_spread(f"epoch {epoch} metric sum", sums[1], want[1], other[1], TRAIN_TOL)
+        moved, a_moved = float((params(model) - before).norm()), float((params(a) - a_before).norm())
+        assert abs(moved - a_moved) <= MOVED * a_moved, f"epoch {epoch}: moved {moved}, the eager run {a_moved}"
+        for s in (sched, a_sched, b_sched):
+            s.step()
+        assert opt.param_groups[0]["lr"] is rate
+        assert float(rate) == float(a_opt.param_groups[0]["lr"]) == pytest.approx(1e-3 * 0.7 ** (epoch + 1))
+    programs = runner.step.cache(card)
+    assert (programs.captures, programs.replays, programs.remade) == (1, 5, 0)
+    print(f"epochs: over the movement {_held_by_movement(model, a, start, 'epochs')}, eager against eager "
+          f"{_held_by_movement(b, a, start, 'epochs')}")
+
+
+def test_a_restore_replays_on_the_restored_tensors(card, tmp_path):
+    """An epoch captured, ``latest`` saved, another epoch, then the state
+    restored from ``latest.pt`` in place: the same epoch again is a replay
+    of the program captured before (no capture, nothing made anew), and its
+    sums and the BatchNorm statistics after it equal those of the epoch
+    run after the save, whose generator state it restored (TRAIN_TOL)."""
+    from pointnet_like_pose_estimation_tpu_torch.models import get_model_spec
+    from pointnet_like_pose_estimation_tpu_torch.train import TrainState, make_epoch_runner
+    from pointnet_like_pose_estimation_tpu_torch.train.loop import restore_checkpoint, save_checkpoint
+
+    cfg, runs, data = _copies(card, "pointnet2_cls_ssg", 1, experiment="classification/r3_pointnet2_cls_ssg")
+    (model, opt, sched, gen), = runs
+    state = TrainState(model, opt, sched, gen)
+    runner = make_epoch_runner(get_model_spec(cfg.model), cfg, 3)
+    runner(model, opt, data, gen)
+    path = str(tmp_path / "latest.pt")
+    save_checkpoint(path, state, 0, 0.0)
+    first, _ = runner(model, opt, data, gen)
+    first = first.clone()
+    after = {k: v.clone() for k, v in model.state_dict().items()}
+    restore_checkpoint(path, state)
+    again, _ = runner(model, opt, data, gen)
+    programs = runner.step.cache(card)
+    assert (programs.captures, programs.replays, programs.remade) == (1, 8, 0)
+    torch.testing.assert_close(again, first, rtol=TRAIN_TOL, atol=TRAIN_TOL)
+    for k, v in model.state_dict().items():
+        if k.endswith(("running_mean", "running_var")):
+            torch.testing.assert_close(v, after[k], rtol=TRAIN_TOL, atol=TRAIN_TOL, msg=k)
+
+
+def test_eval_program_equals_the_eager_eval(card):
+    """``evaluate``'s program over a padded split (140 test clouds at batch
+    24: 6 batches, 4 pad rows) against the same batches' sums run eagerly
+    on the card: counts equal, floats within 1e-5; a second pass replays; a
+    replaced parameter makes the program anew."""
+    from pointnet_like_pose_estimation_tpu_torch.data import build_dataset, load_dataset
+    from pointnet_like_pose_estimation_tpu_torch.models import build_model, get_model_spec
+    from pointnet_like_pose_estimation_tpu_torch.train import TrainConfig, load_checkpoint
+    from pointnet_like_pose_estimation_tpu_torch.train.loop import (
+        _batch_sums,
+        _device_eval_batches,
+        _eval_sums,
+        _host_sums,
+        eval_programs,
+    )
+
+    name = "pointnet2_cls_ssg"
+    model, _ = load_checkpoint(
+        os.path.join(ROOT, "log/classification/r3_pointnet2_cls_ssg/checkpoints/best.msgpack"), build_model(name))
+    model = model.to(card).eval()
+    spec, cfg = get_model_spec(name), TrainConfig.for_model(name, batch_size=24)
+    test = load_dataset(build_dataset(80, seed=0), "test")
+    batches = _device_eval_batches(test, 24, card)
+    assert len(batches) == 6 and float(batches[-1]["valid"].sum()) == len(test) - 5 * 24
+    with torch.no_grad():
+        want = _host_sums(spec, cfg, sum(_batch_sums(spec, cfg, model, b) for b in batches))
+    f0 = fps.launches
+    got = _eval_sums(spec, cfg, model, batches, card)
+    assert fps.launches - f0 == 2 * len(batches)
+    for k in ("n", "per_class_count", "per_class_correct"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-5, err_msg=k)
+    programs = eval_programs(model, card)
+    assert (programs.captures, programs.replays) == (1, len(batches) - 1)
+    again = _eval_sums(spec, cfg, model, batches, card)
+    assert all(np.array_equal(again[k], got[k]) for k in got)
+    with torch.no_grad():
+        model.head.fc_2.bias = torch.nn.Parameter(model.head.fc_2.bias.clone())
+    _eval_sums(spec, cfg, model, batches, card)
+    assert (programs.captures, programs.remade) == (2, 1)
+
+
+def test_a_failed_training_capture_raises_and_runs_the_step_once(card):
+    """A train step whose forward reads the device back to the host cannot
+    be captured: the first call runs the step (its own run), the capture
+    raises, no program is kept, and nothing runs eagerly after it (the
+    optimizer stepped once). In a fresh interpreter, as the serving test."""
+    import subprocess
+    import sys
+
+    code = (
+        "import torch\n"
+        "from pointnet_like_pose_estimation_tpu_torch.models import build_model, get_model_spec\n"
+        "from pointnet_like_pose_estimation_tpu_torch.train import TrainConfig, make_optimizer, make_train_step\n"
+        "cfg = TrainConfig.for_model('rotation', batch_size=4, augment=False)\n"
+        "model = build_model('rotation').cuda()\n"
+        "forward = model.forward\n"
+        "model.forward = lambda x: forward(x) + 0 * float(x.sum())\n"
+        "opt, _ = make_optimizer(cfg, model.parameters())\n"
+        "batch = {'points': torch.rand(4, 256, 3, device='cuda'),\n"
+        "         'labels': torch.zeros(4, dtype=torch.long, device='cuda'),\n"
+        "         'rot': torch.rand(4, 3, device='cuda')}\n"
+        "step = make_train_step(get_model_spec('rotation'), cfg)\n"
+        "try:\n"
+        "    step(model, opt, batch, draws={'augment': None, 'dropout': None})\n"
+        "except RuntimeError:\n"
+        "    c = step.cache('cuda')\n"
+        "    steps = sorted({int(s['step']) for s in opt.state.values()})\n"
+        "    print('raised', c.captures, c.replays, len(c), steps)\n"
+        "else:\n"
+        "    print('returned')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert res.stdout.strip().splitlines()[-1] == "raised 0 0 0 [1]", res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("optimizer", ["adam", "sgd"])
+def test_optimizers_take_a_device_learning_rate_under_capture(card, optimizer):
+    """``make_optimizer`` on the card (Adam capturable, SGD fused, the rate
+    a float32 tensor on the card): a step captured by StepProgramCache and
+    replayed across a StepLR boundary (in place) and a ``restore_optimizer``
+    (the saved rate a float, as in older checkpoints) equals the same
+    steps run eagerly on a copy."""
+    import copy
+
+    from pointnet_like_pose_estimation_tpu_torch.train import TrainConfig, make_optimizer
+    from pointnet_like_pose_estimation_tpu_torch.train.state import restore_optimizer
+    from pointnet_like_pose_estimation_tpu_torch.utils.programs import StepProgramCache
+
+    torch.manual_seed(0)
+    cfg = TrainConfig(optimizer=optimizer, learning_rate=1e-2, lr_step_epochs=1, lr_gamma=0.5)
+    model = torch.nn.Sequential(torch.nn.Linear(8, 16), torch.nn.ReLU(), torch.nn.Linear(16, 1)).to(card)
+    opt, sched = make_optimizer(cfg, model.parameters())
+    twin, twin_opt, twin_sched = copy.deepcopy((model, opt, sched))
+    rate = opt.param_groups[0]["lr"]
+    assert rate.device.type == card.type
+    x = torch.randn(32, 8, device=card)
+
+    def body(m, o, inp):
+        o.zero_grad(set_to_none=False)
+        loss = m(inp).square().mean()
+        loss.backward()
+        o.step()
+        return loss.detach()
+
+    programs = StepProgramCache(card)
+    for i in range(4):
+        got = programs(("step",), lambda inp: body(model, opt, inp), (x,),
+                       lambda: [*model.parameters(), *(p.grad for p in model.parameters()), rate])
+        want = body(twin, twin_opt, x)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        sched.step()
+        twin_sched.step()
+        assert opt.param_groups[0]["lr"] is rate
+        if i == 1:
+            saved = copy.deepcopy(opt.state_dict())
+            saved["param_groups"][0]["lr"] = float(saved["param_groups"][0]["lr"])
+            restore_optimizer(opt, saved)
+            assert opt.param_groups[0]["lr"] is rate
+    assert (programs.captures, programs.replays, programs.remade) == (1, 3, 0)
+    for p, q in zip(model.parameters(), twin.parameters()):
+        torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-6)
+
+
+def test_per_step_path_trains_through_the_program(card, tmp_path):
+    """``train`` with the split on the host (``device_data`` off): every
+    step a call of the programmed step with its batch copied in, every
+    batch of the per-epoch eval a call of the eval program, each call one
+    run: FPS twice a step and twice an eval batch, over two epochs."""
+    from pointnet_like_pose_estimation_tpu_torch.data import build_dataset, load_dataset
+    from pointnet_like_pose_estimation_tpu_torch.train import TrainConfig, train
+
+    fields = build_dataset(10, seed=3)
+    train_ds, test_ds = load_dataset(fields, "train"), load_dataset(fields, "test")
+    cfg = TrainConfig.for_model("pointnet2_cls_ssg", batch_size=24, epochs=2, device_data=False,
+                                log_dir=str(tmp_path))
+    f0 = fps.launches
+    _, history = train(cfg, train_ds, test_ds, resume=False)
+    torch.cuda.synchronize()
+    steps, batches = len(train_ds) // 24, -(-len(test_ds) // 24)
+    assert fps.launches - f0 == 2 * 2 * (steps + batches)
+    assert [r["epoch"] for r in history] == [0, 1]
+    assert all(np.isfinite(r["train_loss"]) and np.isfinite(r["test_loss"]) for r in history)

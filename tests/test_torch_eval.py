@@ -73,9 +73,8 @@ def _assert_results_match(got, want):
 
 @pytest.mark.parametrize("name", MODELS)
 def test_evaluate_matches_jax_evaluate(test_split, name):
-    """7 clouds at batch 3: the JAX package pads the last batch to 3 and
-    masks the pad, the port lets it be short; every key of the result is
-    equal all the same."""
+    """7 clouds at batch 3: both packages pad the last batch to 3 and mask
+    the pad; every key of the result is equal."""
     jcfg, tcfg = _cfgs(name, loss_kind="L1_loss" if name == "width" else "L2_loss")
     state, model = _pair(name, jcfg)
     want = jax_loop.evaluate(jcfg, state, test_split)
