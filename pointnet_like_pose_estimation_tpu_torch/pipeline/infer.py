@@ -29,6 +29,11 @@ last one's reuses its program. The smallest cluster's size is a device
 scalar, so it never forces another capture either. The pads change no real cluster's result: FPS from a cluster's
 first point never picks a copy of it while real points remain, and
 eval-mode BatchNorm treats every cluster on its own.
+
+A profiler that records sees a request's stages as spans
+(``utils/profiling.py`` ``span``): ``serve.upload`` (the padding into the
+bucket and the copy into the program's input), ``program.replay`` and
+``serve.copy_back``.
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ from pointnet_like_pose_estimation_tpu_torch.utils.checkpoint import (
     load_flax_checkpoint,
 )
 from pointnet_like_pose_estimation_tpu_torch.utils.device import resolve_device
+from pointnet_like_pose_estimation_tpu_torch.utils.profiling import span
 from pointnet_like_pose_estimation_tpu_torch.utils.programs import ProgramCache
 
 MODEL_KEYS = ("classifier", "rotation", "sign", "translation", "width")
@@ -311,6 +317,9 @@ class GraspPipeline:
         """Clusters ``[K, M, C]`` -> grasp estimates as host numpy arrays,
         under the keys of the JAX package's ``infer_clusters``, through the
         request program of their bucket."""
-        key, fn, inputs, K = self._request_call(clusters)
-        out = self.programs(key, fn, inputs)
-        return {k: v[:K].cpu().numpy() for k, v in out.items()}
+        with span("serve.upload"):
+            key, fn, inputs, K = self._request_call(clusters)
+            prog = self.programs.load(key, fn, inputs)
+        out = self.programs.replay(prog)
+        with span("serve.copy_back"):
+            return {k: v[:K].cpu().numpy() for k, v in out.items()}

@@ -25,6 +25,7 @@ from pointnet_like_pose_estimation_tpu_torch.data import augment as aug
 from pointnet_like_pose_estimation_tpu_torch.models import ModelSpec
 from pointnet_like_pose_estimation_tpu_torch.nn.layers import Dropout
 from pointnet_like_pose_estimation_tpu_torch.train.config import TrainConfig
+from pointnet_like_pose_estimation_tpu_torch.utils.profiling import span
 from pointnet_like_pose_estimation_tpu_torch.utils.programs import StepProgramCache, program_device
 
 _TARGET_KEY = {"classify": "labels", "rotation": "rot", "translation": "tran",
@@ -250,6 +251,10 @@ class EpochRunner:
     one replay. The JAX package runs the epoch as scans of
     ``cfg.epoch_chunk`` steps to bound one TPU dispatch; the port replays
     one graph a step. ``eager`` is the same epoch without a program.
+
+    A profiler that records sees a ``train.step`` a step, which holds
+    ``train.draws`` and the program's ``program.replay``
+    (``utils/profiling.py`` ``span``); ``stop()`` runs outside it.
     """
 
     def __init__(self, spec: ModelSpec, cfg: TrainConfig, num_steps: int):
@@ -311,8 +316,10 @@ class EpochRunner:
         for _ in range(self.num_steps):
             if stop is not None and stop():
                 break
-            _draw_into(static["draws"], gen)
-            programs(key, fn, (), bound)
+            with span("train.step"):
+                with span("train.draws"):
+                    _draw_into(static["draws"], gen)
+                programs(key, fn, (), bound)
             done += 1
         return static["sums"].clone(), done
 

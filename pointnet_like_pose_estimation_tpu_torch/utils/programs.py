@@ -37,6 +37,10 @@ launches nothing, so the cache takes back what the capture added, records
 it with the graph (``launches(key)``) and adds it again at every replay:
 the counts stay launches that ran on the card. The warm-up's launches ran,
 and stay counted.
+
+``ProgramCache.load`` and ``replay`` are a call in two parts, for a caller
+that marks the copy in as a stage of its own; a replay is the span
+``program.replay`` (``utils/profiling.py`` ``span``).
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ import torch
 from pointnet_like_pose_estimation_tpu_torch.kernels.ball_group import ball_query_multi
 from pointnet_like_pose_estimation_tpu_torch.kernels.fps import fps
 from pointnet_like_pose_estimation_tpu_torch.kernels.fused_sa import fused_sa_infer
+from pointnet_like_pose_estimation_tpu_torch.utils.profiling import span
 
 # the launch counters of the kernel wrappers, by kernel name
 COUNTED = {"fps": fps, "ball_query": ball_query_multi, "fused_sa": fused_sa_infer}
@@ -175,9 +180,10 @@ class _Cache:
 
     def _replay(self, prog: _Program):
         self.replays += 1
-        if prog.graph is None:
-            return prog.fn(*prog.inputs)
-        prog.graph.replay()
+        with span("program.replay"):
+            if prog.graph is None:
+                return prog.fn(*prog.inputs)
+            prog.graph.replay()
         for name, count in prog.launches.items():
             COUNTED[name].launches += count
         return prog.outputs
@@ -191,6 +197,11 @@ class ProgramCache(_Cache):
     time of the warm-ups and captures) and, per key, ``launches(key)``."""
 
     def __call__(self, key, fn: Callable, inputs):
+        return self.replay(self.load(key, fn, inputs))
+
+    def load(self, key, fn: Callable, inputs) -> _Program:
+        """The program of ``key`` with ``inputs`` copied into its static
+        tensors, made (warm-up and capture) at the key's first call."""
         inputs = tuple(inputs)
         with torch.inference_mode():
             prog = self._programs.get(key)
@@ -200,6 +211,11 @@ class ProgramCache(_Cache):
             else:
                 self._programs.move_to_end(key)
                 self._load(key, prog, inputs)
+            return prog
+
+    def replay(self, prog: _Program):
+        """Run a program that ``load`` handed back: its outputs."""
+        with torch.inference_mode():
             return self._replay(prog)
 
     def _make(self, fn: Callable, inputs: tuple) -> _Program:

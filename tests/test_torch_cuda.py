@@ -982,3 +982,35 @@ def test_per_step_path_trains_through_the_program(card, tmp_path):
     assert fps.launches - f0 == 2 * 2 * (steps + batches)
     assert [r["epoch"] for r in history] == [0, 1]
     assert all(np.isfinite(r["train_loss"]) and np.isfinite(r["test_loss"]) for r in history)
+
+
+def test_spans_and_device_records_share_a_clock(card):
+    """A traced request: the replay's kernels start after its
+    ``program.replay`` opens, the copies back lie inside
+    ``serve.copy_back``, and no span is drawn on the device's timeline,
+    where a reader of the timeline would count it as work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pointnet_like_pose_estimation_tpu_torch.pipeline import GraspPipeline
+    from pointnet_like_pose_estimation_tpu_torch.utils.profiling import SPANS, idle_by_span
+
+    pipe = GraspPipeline.from_random(seed=1, device=card)
+    x = (0.05 * np.random.default_rng(0).standard_normal((8, 2048, 3))).astype(np.float32)
+    pipe.infer_clusters(x)                  # the capture
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pipe.infer_clusters(x)
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    dev = [e for e in events if e.device_type == cuda]
+    assert not [e.name for e in dev if e.name in SPANS]
+    host = {e.name: e.time_range for e in events if e.device_type != cuda and e.name in SPANS}
+    kernels = [e.time_range for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
+    back = [e.time_range for e in dev if "DtoH" in e.name]
+    assert kernels and back, sorted({e.name for e in dev})
+    replay, copy_back = host["program.replay"], host["serve.copy_back"]
+    assert all(k.start >= replay.start for k in kernels)
+    assert all(copy_back.start <= c.start and c.end <= copy_back.end for c in back)
+    split = idle_by_span(events)
+    assert {k for k in split if k} == {"serve.upload", "program.replay", "serve.copy_back"}
+    assert 0 < sum(v["idle_s"] for v in split.values()) < (copy_back.end - host["serve.upload"].start) / 1e6

@@ -17,7 +17,6 @@ import pytest
 import torch
 
 from pointnet_like_pose_estimation_tpu_torch.utils import (
-    StepTimer,
     sustained_step_time,
     sustained_time,
     trace,
@@ -63,16 +62,6 @@ def test_sustained_step_time_runs_the_port_s_train_step():
                             min_seconds=0.05, max_iters=64)
     assert 0 < t < time.perf_counter() - t0           # a step takes part of the whole call
     assert any(not torch.equal(a, b) for a, b in zip(before, state.model.parameters()))
-
-
-def test_step_timer():
-    timer = StepTimer()
-    for _ in range(3):
-        timer.start()
-        timer.stop(torch.ones(2) * 2)
-    assert len(timer.times) == 3 and timer.mean > 0
-    assert timer.throughput(24) == pytest.approx(24 / timer.mean)
-    assert StepTimer().throughput(24) == 0.0
 
 
 def test_trace_writes_a_timeline(tmp_path):
