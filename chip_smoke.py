@@ -21,7 +21,10 @@ Phases, any failure exits non-zero:
    between two events), beside its bound; for the ball query the time of a
    call launched from Python in a loop stands beside it; and FPS's shared
    path, off the main path, timed beside its plain version at
-   SHARED_FPS_SHAPES;
+   SHARED_FPS_SHAPES; the fused train-mode BatchNorm + ReLU against the
+   plain pair at SA1's shapes (forward bit for bit, gradients within
+   BN_RELU_GRAD_TOL) and its forward and backward timed at every pair of
+   SSG's train step at B = 24 beside the plain pair (library_ms);
 4. serve requests through GraspPipeline.from_checkpoints on the five
    committed checkpoints: the replay clusters of tests/fixtures and three
    seeded batches (M > 1024, M < 1024, and one more M > 1024 in the bucket
@@ -101,8 +104,10 @@ Phases, any failure exits non-zero:
    history.json with epochs 0, 1, 2, the classifier's loss falling, the
    eval command on best.pt equal to evaluate (every epoch's steps and eval
    batches replays of their programs, the FPS launches exactly one run a
-   call); one replay of a train step under torch.profiler, which must run
-   on the card the 2 FPS and 2 ball-query kernels its capture recorded;
+   call; the fused BatchNorm + ReLU launched on the train path); one replay
+   of a train step under torch.profiler, which must run on the card the 2
+   FPS and 2 ball-query kernels and the 9 fused BatchNorm + ReLU forwards
+   its capture recorded, and no plain pair;
    then training clouds/s and peak device memory of
    pointnet2_cls_ssg at batch 24 and 256 (CUDA events over spans of 2 s or
    more, median of 3, batches gathered on the card from the resident
@@ -277,6 +282,14 @@ SHARED_FPS_SHAPES = ((9, 8192, 3, 256), (32, 8192, 10, 256))
 # (radii, ks) of the set-abstraction levels of the SSG and MSG models
 SSG_SA1, SSG_SA2 = ((0.2,), (32,)), ((0.4,), (64,))
 MSG_SA1, MSG_SA2 = ((0.1, 0.2, 0.4), (16, 32, 128)), ((0.2, 0.4, 0.8), (32, 64, 128))
+# (level, rows, widths) of the SSG classifier's shared MLPs in a train step
+# at B = 24: each Linear's output [rows, width] goes through a train-mode
+# BatchNorm + ReLU
+SSG_B24_BN = (("SA1", 24 * 512 * 32, (64, 64, 128)), ("SA2", 24 * 128 * 64, (128, 128, 256)),
+              ("SA3", 24 * 128, (256, 512, 1024)))
+# the fused BatchNorm + ReLU's gradients against the plain pair's on the
+# card, relative to each tensor's norm (the forward is held bit for bit)
+BN_RELU_GRAD_TOL = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -590,7 +603,101 @@ def kernel_phase(device) -> list[dict]:
                     "one call at each of the eight shapes, 32 clouds"))
 
     return [kernel_entry(name, source, replaces, err[name], shapes, per)
-            for name, source, replaces, shapes, per in entries]
+            for name, source, replaces, shapes, per in entries] + [bn_relu_entry(device)]
+
+
+def bn_relu_entry(device) -> dict:
+    """The fused train-mode BatchNorm + ReLU (kernels/bn_relu.py) against
+    the plain pair, torch.relu of BatchNormF32 through autograd, on the card
+    at the SA1 shapes (output and running statistics bit for bit, dx and the
+    parameters' gradients by BN_RELU_GRAD_TOL of their norms, two calls the
+    same bits), then the time of its forward (with its torch.var_mean) and
+    backward at every pair of SSG's train step at B = 24 (a call in a CUDA
+    graph) beside its bound (each input read once and each output written
+    once at the HBM rate), its plain version and the plain pair (library_ms,
+    which the port no longer calls in training)."""
+    import copy
+
+    import torch
+
+    from pointnet_like_pose_estimation_tpu_torch.kernels import bn_relu as fused
+    from pointnet_like_pose_estimation_tpu_torch.nn import BatchNormF32
+
+    def pair(R, C):
+        g = torch.Generator(device=device).manual_seed(R + C)
+        x = (torch.randn(R, C, generator=g, device=device) * (torch.rand(C, generator=g, device=device) + 0.1)
+             + torch.randn(C, generator=g, device=device))
+        bn = BatchNormF32(C).to(device)
+        with torch.no_grad():
+            bn.weight.copy_(torch.rand(C, generator=g, device=device) + 0.5)
+            bn.bias.copy_(torch.rand(C, generator=g, device=device) - 0.5)
+        return x, torch.randn(R, C, generator=g, device=device), bn
+
+    def run(x, dy, bn, plain):
+        bn = copy.deepcopy(bn)
+        x = x.clone().requires_grad_()
+        y = torch.relu(bn(x)) if plain else fused.bn_relu(x, bn)
+        grads = torch.autograd.grad(y, [x, bn.weight, bn.bias], dy)
+        return dict(zip(("y", "dx", "grad_weight", "grad_bias", "running_mean", "running_var"),
+                        (y.detach(), *grads, bn.running_mean, bn.running_var)))
+
+    err = 0.0
+    with uncounted():
+        for C in SSG_B24_BN[0][2][1:]:
+            x, dy, bn = pair(SSG_B24_BN[0][1], C)
+            got, want = run(x, dy, bn, False), run(x, dy, bn, True)
+            again = run(x, dy, bn, False)
+            torch.cuda.synchronize()
+            what = f"bn_relu SA1 [{x.shape[0]}, {C}]"
+            check(all(torch.equal(got[k], again[k]) for k in got), f"{what}: two calls differ")
+            check(all(torch.equal(got[k], want[k]) for k in ("y", "running_mean", "running_var")),
+                  f"{what}: the forward is not the plain pair's bit for bit")
+            gaps = {k: float((got[k] - want[k]).double().norm() / want[k].double().norm())
+                    for k in ("dx", "grad_weight", "grad_bias")}
+            for k, gap in gaps.items():
+                check(gap <= BN_RELU_GRAD_TOL, f"{what}: {k} {gap} of its norm from the plain pair")
+            err = max(err, *gaps.values())
+            log(f"  {what}: the forward equals the plain pair's bit for bit; gradients against it, relative to "
+                f"the norm: {json.dumps(gaps)}; two calls equal bit for bit")
+
+        shapes = []
+        for level, R, widths in SSG_B24_BN:
+            for i, C in enumerate(widths):
+                x, dy, bn = pair(R, C)
+                w, b = bn.weight.detach(), bn.bias.detach()
+                rm, rv = bn.running_mean, bn.running_var
+                var, mean = torch.var_mean(x, dim=0, unbiased=False)
+                rstd = torch.rsqrt(var + bn.eps)
+                xg = x.clone().requires_grad_()
+
+                def fused_fwd():
+                    fused.BatchNormReLU.apply(x, w, b, rm, rv, bn.momentum, bn.eps)
+
+                def plain_fwd():
+                    torch.relu(bn(x))
+
+                def plain_both():
+                    torch.autograd.grad(torch.relu(bn(xg)), [xg, bn.weight, bn.bias], dy)
+
+                with torch.no_grad():
+                    ms_fwd, lib_fwd = cuda_graph_ms(fused_fwd, 10), cuda_graph_ms(plain_fwd, 10)
+                ms_bwd = cuda_graph_ms(lambda: fused._backward_kernel(x, dy, mean, rstd, w, b), 10)
+                lib_bwd = cuda_graph_ms(plain_both, 10) - lib_fwd
+                plain = {"forward": cuda_ms(lambda: fused.forward_reference(x, mean, rstd, w, b), 3),
+                         "backward": cuda_ms(lambda: fused.backward_reference(x, dy, mean, rstd, w, b), 3)}
+                nbytes = 4 * R * C
+                for what, ms, lib, moved in (("forward", ms_fwd, lib_fwd, 2), ("backward", ms_bwd, lib_bwd, 3)):
+                    bound = 1e3 * moved * nbytes / HBM_BYTES_PER_S
+                    check(ms >= bound, f"bn_relu {level} {what}: {ms} ms reads over 100% of its bound {bound} ms")
+                    shapes.append({"call": f"{level} bn_{i} {what}", "shape": [R, C], "ms": ms,
+                                   "plain_ms": plain[what], "library_ms": lib,
+                                   "bound_ms": bound, "bound_by": "bytes"})
+    entry = kernel_entry("bn_relu", "pointnet_like_pose_estimation_tpu_torch/kernels/csrc/bn_relu.cu",
+                         "none: XLA fused the JAX package's BatchNorm and ReLU on the TPU", err, shapes,
+                         "one train step of pointnet2_cls_ssg at B = 24: its nine shared-MLP pairs, "
+                         "forward and backward")
+    entry["library_ms"] = sum(s["library_ms"] for s in shapes)
+    return entry
 
 
 def kernel_entry(name, source, replaces, err, shapes, per_request_of) -> dict:
@@ -602,6 +709,8 @@ def kernel_entry(name, source, replaces, err, shapes, per_request_of) -> dict:
             extra += f", plan {tuple(s['plan'])}: {s['path']} path"
         if "ms_with_host_enqueue" in s:
             extra = f", {s['ms_with_host_enqueue']:.4f} ms a call launched from Python in a loop"
+        if "library_ms" in s:
+            extra = f", the plain pair {s['library_ms']:.4f} ms"
         if "tc_bound_ms" in s:
             extra = (f" = {100 * s['bound_ms'] / s['ms']:.1f}% of the f32 bound, tensor-core bound "
                      f"{s['tc_bound_ms']:.6f} ms = {100 * s['tc_bound_ms'] / s['ms']:.1f}%")
@@ -882,7 +991,8 @@ def programs_line(what: str, cache) -> dict:
 # the kernels of the port by the name the profiler gives them
 PROFILED_KERNELS = {"fps": ("fps_register_kernel", "fps_register_spliced_kernel", "fps_dist_kernel",
                             "fps_cluster_kernel"),
-                    "ball_query": ("ball_query_kernel",), "fused_sa": ("fused_sa_kernel",)}
+                    "ball_query": ("ball_query_kernel",), "fused_sa": ("fused_sa_kernel",),
+                    "bn_relu": ("bn_relu_apply_kernel",)}
 
 
 def profiled_launches(fn) -> dict[str, int]:
@@ -961,7 +1071,7 @@ def fast_infer_phase(pipe, executors, kernels: list[dict]) -> dict:
     check(outputs[2][5] == 1, "SSG: the second batch of one bucket was not a replay")
     check(not torch.equal(outputs[1][3], outputs[2][3]), "SSG: the second batch of one bucket gave the first's")
     for k in kernels:
-        k.setdefault("launches_by_path", {"serving": k["launches"]})["fast_infer"] = launches[k["name"]]
+        k.setdefault("launches_by_path", {"serving": k["launches"]})["fast_infer"] = launches.get(k["name"], 0)
         if k["name"] == "fused_sa":
             k["launches"] = launches["fused_sa"]
 
@@ -1038,7 +1148,8 @@ def serving_phase(pipe, cpu, kernels: list[dict]) -> dict:
         out, runs = runs_of(pipe.programs, lambda: pipe.infer_clusters(clusters))
         key = pipe._request_call(clusters)[0]
         want_fps = 3 if clusters.shape[1] > 1024 else 2
-        check(pipe.programs.launches(key) == {"fps": want_fps, "ball_query": 2, "fused_sa": 0},
+        check(pipe.programs.launches(key) == {"fps": want_fps, "ball_query": 2, "fused_sa": 0, "bn_relu": 0,
+                                              "bn_relu_plain": 0},
               f"{name}: the program of {key} records {pipe.programs.launches(key)}")
         got_counts = (fps.launches - f0, ball_query_multi.launches - b0)
         check(got_counts == (want_fps * runs, 2 * runs),
@@ -1046,8 +1157,8 @@ def serving_phase(pipe, cpu, kernels: list[dict]) -> dict:
         outputs.append((name, clusters, out, key, runs))
     launches = {"fps": fps.launches, "ball_query": ball_query_multi.launches}
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-        check(k["launches"] > 0, f"{k['name']} never launched on the main path")
+        k["launches"] = launches.get(k["name"], 0)
+        check(k["launches"] > 0 or k["name"] not in launches, f"{k['name']} never launched on the main path")
     check(outputs[-1][3] == outputs[1][3] and outputs[-1][4] == 1,
           f"the second request of bucket {outputs[1][3]} was not a replay")
     # the card's trace of one replay runs the kernels its capture recorded
@@ -1055,7 +1166,8 @@ def serving_phase(pipe, cpu, kernels: list[dict]) -> dict:
     with uncounted():
         traced = profiled_launches(lambda: pipe.infer_clusters(traced_clusters))
     recorded = pipe.programs.launches(traced_key)
-    check(traced == recorded == {"fps": 3, "ball_query": 2, "fused_sa": 0},
+    check(recorded == {"fps": 3, "ball_query": 2, "fused_sa": 0, "bn_relu": 0, "bn_relu_plain": 0}
+          and all(traced[k] == recorded[k] for k in traced),
           f"the profiler saw {traced} in a replay of {traced_key}, its capture recorded {recorded}")
     log(f"  one replay of {traced_key} under torch.profiler: {json.dumps(traced)}, as its capture recorded")
 
@@ -1617,7 +1729,8 @@ def profiled_train_replay(device, data) -> dict:
     programs = step.cache(device)
     recorded = programs.launches(programs.keys()[0])
     check(programs.replays == 1 and seen["fps"] == recorded["fps"] == 2
-          and seen["ball_query"] == recorded["ball_query"] == 2,
+          and seen["ball_query"] == recorded["ball_query"] == 2
+          and seen["bn_relu"] == recorded["bn_relu"] == 9 and recorded["bn_relu_plain"] == 0,
           f"a train step's replay under the profiler ran {seen}, its capture recorded {recorded}")
     log(f"  a train step's replay under the profiler ran {seen} on the card, as its capture recorded")
     return {"profiled": seen, "recorded": recorded}
@@ -1632,6 +1745,7 @@ def train_phase(device, kernels: list[dict]) -> dict:
     from pointnet_like_pose_estimation_tpu_torch import cli
     from pointnet_like_pose_estimation_tpu_torch.data import load_dataset
     from pointnet_like_pose_estimation_tpu_torch.kernels.ball_group import ball_query_multi
+    from pointnet_like_pose_estimation_tpu_torch.kernels.bn_relu import bn_relu, plain_bn_relu
     from pointnet_like_pose_estimation_tpu_torch.kernels.fps import fps
     from pointnet_like_pose_estimation_tpu_torch.models import build_model
     from pointnet_like_pose_estimation_tpu_torch.train import TrainConfig, evaluate, load_checkpoint
@@ -1639,7 +1753,7 @@ def train_phase(device, kernels: list[dict]) -> dict:
 
     data_path = os.path.join(ROOT, "build", "chip_smoke_dataset.npz")       # the eval phase's
     report = {"step": {}, "train_command": {}, "throughput": {}}
-    fps.launches = ball_query_multi.launches = 0
+    fps.launches = ball_query_multi.launches = bn_relu.launches = plain_bn_relu.launches = 0
     for name, (experiment, per_step) in TRAIN_STEP_MODELS.items():
         report["step"][name] = train_step_check(device, name, experiment, per_step, data_path)
 
@@ -1686,10 +1800,14 @@ def train_phase(device, kernels: list[dict]) -> dict:
             f"(epoch {meta['epoch']}) equals evaluate")
     losses = report["train_command"]["pointnet2_cls_ssg"]["train_loss_by_epoch"]
     check(losses[2] < losses[0], f"pointnet2_cls_ssg: the train loss did not fall: {losses}")
-    launches = {"fps": fps.launches, "ball_query": ball_query_multi.launches}
-    check(launches["fps"] > 0 and launches["ball_query"] > 0, "the train path launched no kernel")
+    launches = {"fps": fps.launches, "ball_query": ball_query_multi.launches, "bn_relu": bn_relu.launches,
+                "bn_relu_plain": plain_bn_relu.launches}
+    check(launches["fps"] > 0 and launches["ball_query"] > 0 and launches["bn_relu"] > 0,
+          "the train path launched no kernel")
     for k in kernels:
         k["launches_by_path"]["train"] = launches.get(k["name"], 0)
+        if k["name"] == "bn_relu":
+            k["launches"] = launches["bn_relu"]
     report["launches"] = launches
 
     data = _device_data(train_ds, device)

@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNELS = ("fps", "ball_group", "fused_sa")
+KERNELS = ("fps", "ball_group", "fused_sa", "bn_relu")
 
 # -fmad=false: a contracted multiply-add rounds once where the PyTorch
 # version rounds twice, which moves points across the ball radius and

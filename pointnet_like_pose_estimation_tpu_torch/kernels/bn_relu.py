@@ -1,0 +1,206 @@
+"""Train-mode BatchNorm + ReLU over channels-last ``[R, C]``: the CUDA
+kernels, their plain PyTorch versions, and the autograd Function that joins
+forward and backward.
+
+``bn_relu(x, bn)`` computes ``torch.relu(bn(x))`` for a train-mode
+``nn/layers.py`` ``BatchNormF32`` in one ``torch.autograd.Function``: the
+batch's mean and biased variance by ``torch.var_mean`` (the plain pair's
+own reduction, so that the forward equals the plain pair's bit for bit;
+``csrc/bn_relu.cu`` says why), then on a CUDA tensor two kernels forward
+and three backward (``csrc/bn_relu.cu``, whose note gives the design and
+what bounds it), on a CPU tensor the plain versions below. ``PointwiseMLP``
+decides which pairs take it (``nn/layers.py`` ``plain_reason``); the others
+go through ``plain_bn_relu``. It replaces no TPU kernel: XLA fused these
+ops on the TPU, and PyTorch runs them as some ten passes of its own kernels.
+
+Both count: ``bn_relu.launches`` the fused forwards on the card,
+``plain_bn_relu.launches`` the train-mode pairs that took the plain path
+(``utils/programs.py`` ``COUNTED`` counts both at every replay of a graph).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from pointnet_like_pose_estimation_tpu_torch.kernels import _build
+
+# what csrc/bn_relu.cu takes (kThreads, kMaxRowBlocks: four blocks of 256
+# threads on each of the card's 132 SMs)
+THREADS = 256
+MAX_ROW_BLOCKS = 4 * 132
+
+
+class BnReluPlan(NamedTuple):
+    """The launch geometry of ``csrc/bn_relu.cu``."""
+
+    tpr: int      # threads a row, one 16-byte column group (4 channels) each
+    rpi: int      # rows a block takes at once
+    chunks: int   # column chunks of THREADS groups (gridDim.y)
+    slab: int     # rows a block, a multiple of rpi
+    blocks: int   # row blocks, each writing one partial per channel
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def bn_relu_plan(R: int, C: int) -> BnReluPlan:
+    """Launch plan for ``[R, C]``: ``min(C / 4, THREADS)`` threads span a
+    row, the rows go in at most ``MAX_ROW_BLOCKS`` slabs of whole steps. The
+    kernel computes the same figures and refuses a launch whose ``blocks``
+    differs. Raises ``ValueError`` where R < 1 or C is no multiple of 4."""
+    if R < 1 or C < 4 or C % 4:
+        raise ValueError(f"bn_relu: no plan for R={R}, C={C} (want R >= 1, C a multiple of 4)")
+    groups = C // 4
+    tpr = min(groups, THREADS)
+    rpi = THREADS // tpr
+    blocks = min(_ceil_div(R, rpi), MAX_ROW_BLOCKS)
+    slab = _ceil_div(_ceil_div(R, blocks), rpi) * rpi
+    return BnReluPlan(tpr, rpi, _ceil_div(groups, tpr), slab, _ceil_div(R, slab))
+
+
+def forward_reference(x, mean, rstd, weight, bias) -> torch.Tensor:
+    """Plain version of the apply pass: ``max((x - mean) * (rstd * w) + b, 0)``."""
+    return torch.relu((x - mean) * (rstd * weight) + bias)
+
+
+
+def backward_reference(x, dy, mean, rstd, weight, bias) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the backward: ``(dx, grad_weight, grad_bias)`` from
+    ``x``, the output's gradient ``dy`` and the forward's mean and rstd. The
+    ReLU passes ``dy`` where the forward's ``(x - mean) * scale + b`` was
+    positive; with ``xh = (x - mean) * rstd``, ``grad_bias = sum g``,
+    ``grad_weight = sum g * xh`` and ``dx = scale * ((g - sum g / R) - xh *
+    (sum g * xh / R))``."""
+    R = x.shape[0]
+    scale = rstd * weight
+    d = x - mean
+    g = torch.where(d * scale + bias <= 0, torch.zeros_like(dy), dy)
+    xh = d * rstd
+    sg, sgx = g.sum(dim=0), (g * xh).sum(dim=0)
+    return scale * ((g - sg / R) - xh * (sgx / R)), sgx, sg
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte boundary (the kernels read float4)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _validate(x: torch.Tensor, *vectors: torch.Tensor) -> None:
+    R, C = x.shape
+    if x.dtype != torch.float32 or R < 1 or C % 4:
+        raise ValueError(f"bn_relu: want float32 [R >= 1, C % 4 == 0], got {x.dtype} {tuple(x.shape)}")
+    for v in vectors:
+        if v.dtype != torch.float32 or v.shape != (C,) or not v.is_contiguous() or v.device != x.device:
+            raise ValueError(f"bn_relu: want contiguous float32 [{C}] vectors beside x, got "
+                             f"{v.dtype} {tuple(v.shape)} on {v.device}")
+
+
+def _forward_kernel(x, mean, var, weight, bias, running_mean, running_var, momentum: float, eps: float):
+    _validate(x, mean, var, weight, bias, running_mean, running_var)
+    R, C = x.shape
+    plan = bn_relu_plan(R, C)
+    y = torch.empty_like(x)
+    rstd, scale = (torch.empty(C, dtype=torch.float32, device=x.device) for _ in range(2))
+    lib = _build.library("bn_relu")
+    lib.plpe_bn_relu_forward.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+    )
+    lib.plpe_bn_relu_forward.restype = ctypes.c_int
+    code = lib.plpe_bn_relu_forward(
+        x.data_ptr(), y.data_ptr(), mean.data_ptr(), var.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+        running_mean.data_ptr(), running_var.data_ptr(), rstd.data_ptr(), scale.data_ptr(),
+        R, C, plan.blocks, 1.0 - momentum, momentum, eps,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, code, "bn_relu forward")
+    return y, rstd
+
+
+def _backward_kernel(x, dy, mean, rstd, weight, bias):
+    _validate(x, mean, rstd, weight, bias)
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"bn_relu: gradient {dy.dtype} {tuple(dy.shape)} for x {x.dtype} {tuple(x.shape)}")
+    R, C = x.shape
+    plan = bn_relu_plan(R, C)
+    dx = torch.empty_like(x)
+    grad_w, grad_b = (torch.empty(C, dtype=torch.float32, device=x.device) for _ in range(2))
+    coef = torch.empty((2, C), dtype=torch.float32, device=x.device)
+    part = torch.empty((2, plan.blocks, C), dtype=torch.float32, device=x.device)
+    lib = _build.library("bn_relu")
+    lib.plpe_bn_relu_backward.argtypes = (
+        [ctypes.c_void_p] * 11 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    )
+    lib.plpe_bn_relu_backward.restype = ctypes.c_int
+    code = lib.plpe_bn_relu_backward(
+        x.data_ptr(), dy.data_ptr(), mean.data_ptr(), rstd.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+        dx.data_ptr(), grad_w.data_ptr(), grad_b.data_ptr(), coef.data_ptr(), part.data_ptr(),
+        R, C, plan.blocks, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, code, "bn_relu backward")
+    return dx, grad_w, grad_b
+
+
+class BatchNormReLU(torch.autograd.Function):
+    """``relu(batch_norm(x))`` in train mode over ``[R, C]``, updating the
+    running statistics in place. Keeps ``x``, the mean and rstd for the
+    backward; the normalised tensor and the ReLU's mask are formed again
+    there. CUDA tensors take the kernels, CPU tensors the plain versions;
+    both take the statistics from ``torch.var_mean``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, momentum: float, eps: float):
+        # the plain pair's own call on the same tensor: the same statistics, bit for bit
+        var, mean = torch.var_mean(x, dim=0, unbiased=False)
+        if x.is_cuda:
+            x = _aligned(x)
+            y, rstd = _forward_kernel(x, mean, var, weight, bias, running_mean, running_var, momentum, eps)
+        else:
+            rstd = torch.rsqrt(var + eps)
+            y = forward_reference(x, mean, rstd, weight, bias)
+            running_mean.mul_(1.0 - momentum).add_(momentum * mean)
+            running_var.mul_(1.0 - momentum).add_(momentum * var)
+        ctx.save_for_backward(x, mean, rstd, weight, bias)
+        return y
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        x, mean, rstd, weight, bias = ctx.saved_tensors
+        if x.is_cuda:
+            dx, grad_w, grad_b = _backward_kernel(x, _aligned(dy), mean, rstd, weight, bias)
+        else:
+            dx, grad_w, grad_b = backward_reference(x, dy, mean, rstd, weight, bias)
+        return dx, grad_w, grad_b, None, None, None, None
+
+
+def bn_relu(x: torch.Tensor, bn) -> torch.Tensor:
+    """``torch.relu(bn(x))`` for a train-mode ``BatchNormF32`` ``bn`` over
+    the trailing axis of ``x``, as one Function: the batch statistics over
+    every other axis, the biased variance, the running statistics and
+    ``num_batches_tracked`` updated as ``BatchNormF32`` updates them."""
+    shape = x.shape
+    y = BatchNormReLU.apply(x.reshape(-1, shape[-1]), bn.weight, bn.bias, bn.running_mean, bn.running_var,
+                            bn.momentum, bn.eps)
+    with torch.no_grad():
+        bn.num_batches_tracked += 1
+    if x.is_cuda:
+        bn_relu.launches += 1
+    return y.reshape(shape)
+
+
+def plain_bn_relu(x: torch.Tensor, bn) -> torch.Tensor:
+    """``torch.relu(bn(x))``, the pair as PyTorch runs it; counts the calls
+    in train mode (those ``bn_relu`` did not take)."""
+    if bn.training:
+        plain_bn_relu.launches += 1
+    return torch.relu(bn(x))
+
+
+bn_relu.launches = 0
+plain_bn_relu.launches = 0

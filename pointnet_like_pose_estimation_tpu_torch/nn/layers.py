@@ -23,6 +23,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from pointnet_like_pose_estimation_tpu_torch.kernels.bn_relu import bn_relu, plain_bn_relu
 from pointnet_like_pose_estimation_tpu_torch.nn.bn_context import bn_group
 
 # TrainConfig.dtype / PipelineConfig.dtype -> the Linear layers' compute dtype
@@ -147,8 +148,36 @@ class Dropout(nn.Module):
         return torch.where(self.uniforms >= self.rate, x / (1.0 - self.rate), torch.zeros_like(x))
 
 
+def plain_reason(x: torch.Tensor, bn: nn.Module) -> str | None:
+    """Why ``relu(bn(x))`` takes the plain path (``torch.relu(bn(x))``),
+    or None where it takes the fused train-mode kernels
+    (``kernels/bn_relu.py``): ``"eval"`` (the running statistics: all of
+    serving), ``"module"`` (a BatchNorm of another forward, such as the
+    tensor-parallel shard), ``"bn_sync"`` (statistics over a process
+    group), ``"dtype"`` (anything but float32: float64, and the bfloat16
+    compute path), ``"width"`` (channels no multiple of 4, which the
+    kernels' 16-byte loads do not take) or ``"device"`` (not a CUDA
+    tensor: the CPU, where the port is held against the JAX package)."""
+    if not bn.training:
+        return "eval"
+    if type(bn) is not BatchNormF32:
+        return "module"
+    if bn_group() is not None:
+        return "bn_sync"
+    if x.dtype != torch.float32:
+        return "dtype"
+    if x.shape[-1] % 4:
+        return "width"
+    if not x.is_cuda:
+        return "device"
+    return None
+
+
 class PointwiseMLP(nn.Module):
-    """Stack of Linear -> BatchNorm -> ReLU over the trailing channel axis."""
+    """Stack of Linear -> BatchNorm -> ReLU over the trailing channel axis.
+    A BatchNorm + ReLU pair runs as one fused Function where
+    ``plain_reason`` gives None (train mode on the card), else as
+    ``torch.relu(bn(x))``."""
 
     def __init__(self, in_features: int, features: Sequence[int], final_activation: bool = True):
         super().__init__()
@@ -164,7 +193,8 @@ class PointwiseMLP(nn.Module):
         for i in range(self.n):
             x = getattr(self, f"dense_{i}")(x)
             if i < self.n - 1 or self.final_activation:
-                x = torch.relu(getattr(self, f"bn_{i}")(x))
+                bn = getattr(self, f"bn_{i}")
+                x = plain_bn_relu(x, bn) if plain_reason(x, bn) else bn_relu(x, bn)
         return x
 
 

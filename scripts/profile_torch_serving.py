@@ -19,8 +19,9 @@ profiles train steps instead (train/steps.py make_train_step, weights
 initialised from seed 0, batches drawn on the card from the train split of
 a seeded dataset of 80 clouds a class, 560 in all, resident there) at each
 batch size B (24 and 256 by default): device time of one step by kernel
-group (the two CUDA kernels, matrix products, gather and scatter, the
-reductions of BatchNorm and max, the optimizer, other elementwise),
+group (the CUDA kernels, matrix products, gather and scatter, the
+reductions (sums, BatchNorm statistics, max), the optimizer, other
+elementwise),
 launches, and the device busy share.
 
 Each train step is a replay of its training program (a CUDA graph,
@@ -105,10 +106,12 @@ def train_group(name: str) -> str:
     g = group(name)
     if g != "other":
         return g
+    if "bn_relu_" in name:
+        return "bn_relu (CUDA kernels: train-mode BatchNorm + ReLU)"
     if any(t in name for t in ("gather", "scatter", "index")):
         return "gather / scatter (index_points and its backward)"
     if "reduce" in name.lower():
-        return "reductions (BatchNorm statistics, max over groups)"
+        return "reductions (sums, BatchNorm statistics, max over groups)"
     if "multi_tensor_apply" in name:
         return "optimizer (foreach Adam)"
     if "nccl" in name.lower():

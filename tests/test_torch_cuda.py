@@ -16,6 +16,7 @@ from pointnet_like_pose_estimation_tpu_torch.kernels.ball_group import (
     ball_query_multi,
     ball_query_reference,
 )
+from pointnet_like_pose_estimation_tpu_torch.kernels.bn_relu import bn_relu, plain_bn_relu
 from pointnet_like_pose_estimation_tpu_torch.kernels.fps import (
     CLUSTER_BLOCKS,
     CLUSTER_PATH,
@@ -287,6 +288,92 @@ def test_mma_tile_matches_scalar_product(card):
     torch.testing.assert_close(got, matmul_3xtf32(a, b), rtol=1e-6, atol=1e-6)
 
 
+def _bn_relu_pair(card, R, C, seed):
+    """Seeded rows as a Linear layer gives them (each channel its own offset
+    and spread), an output gradient, and a train-mode BatchNormF32 with
+    nontrivial parameters and statistics, on the card."""
+    from pointnet_like_pose_estimation_tpu_torch.nn import BatchNormF32
+
+    g = torch.Generator(device=card).manual_seed(seed)
+    x = (torch.randn(R, C, generator=g, device=card) * (torch.rand(C, generator=g, device=card) * 2 + 0.1)
+         + 3 * torch.randn(C, generator=g, device=card))
+    dy = torch.randn(R, C, generator=g, device=card)
+    bn = BatchNormF32(C).to(card).train()
+    with torch.no_grad():
+        bn.weight.copy_(torch.rand(C, generator=g, device=card) + 0.5)
+        bn.bias.copy_(torch.rand(C, generator=g, device=card) - 0.5)
+        bn.running_mean.copy_(torch.randn(C, generator=g, device=card))
+        bn.running_var.copy_(torch.rand(C, generator=g, device=card) + 0.5)
+    return x, dy, bn
+
+
+def _fused_run(x, dy, bn):
+    """One fused forward and backward on a copy of ``bn``: y, dx, the
+    parameters' gradients and the running statistics after it."""
+    import copy
+
+    bn = copy.deepcopy(bn)
+    x = x.clone().requires_grad_()
+    y = bn_relu(x, bn)
+    dx, gw, gb = torch.autograd.grad(y, [x, bn.weight, bn.bias], dy)
+    return {"y": y.detach(), "dx": dx, "grad_weight": gw, "grad_bias": gb,
+            "running_mean": bn.running_mean.clone(), "running_var": bn.running_var.clone()}
+
+
+@pytest.mark.parametrize("R,C", [
+    (393_216, 64), (393_216, 128), (196_608, 128), (196_608, 256), (3_072, 1_024),    # SSG at B = 24
+    (100_003, 64), (777, 12), (5, 2_048), (3, 1_028), (1, 4),      # rows off a block, columns off a row
+])
+def test_bn_relu_kernel_matches_the_plain_path(card, R, C):
+    """The fused kernels against ``torch.relu(BatchNormF32(x))`` through
+    autograd on the card: the output and the updated running statistics
+    equal bit for bit (the same statistics, each later step rounded as
+    PyTorch rounds it), dx and the parameters' gradients within 1e-4 of
+    their norm; a second call gives the same bits; one launch a forward."""
+    x, dy, bn = _bn_relu_pair(card, R, C, seed=R + C)
+    f0, p0 = bn_relu.launches, plain_bn_relu.launches
+    got = _fused_run(x, dy, bn)
+    again = _fused_run(x, dy, bn)
+    torch.cuda.synchronize()
+    assert (bn_relu.launches - f0, plain_bn_relu.launches - p0) == (2, 0)
+    for k in got:
+        assert torch.equal(got[k], again[k]), f"{k}: two calls on the same inputs differ"
+    xp = x.clone().requires_grad_()
+    y = torch.relu(bn(xp))
+    dx, gw, gb = torch.autograd.grad(y, [xp, bn.weight, bn.bias], dy)
+    for k, w in (("y", y.detach()), ("running_mean", bn.running_mean), ("running_var", bn.running_var)):
+        assert torch.equal(got[k], w), f"{k}: not the plain pair's bits (max gap {float((got[k] - w).abs().max())})"
+    gaps = {}
+    for k, w in (("dx", dx), ("grad_weight", gw), ("grad_bias", gb)):
+        if R == 1 and k != "grad_bias":      # one row: its normalised value is 0, and so are both
+            gaps[k] = float((got[k] - w).abs().max())
+        else:
+            gaps[k] = float((got[k] - w).double().norm() / w.double().norm())
+        assert gaps[k] <= 1e-4, (k, gaps[k])
+    print(f"bn_relu [{R}, {C}]: forward equal to the plain pair; gradients, relative to the norm: {gaps}")
+
+
+def test_fused_bn_relu_takes_every_pair_of_the_ssg_train_step(card):
+    """pointnet2_cls_ssg's programmed train step at batch 24: every one of
+    its nine shared-MLP BatchNorm + ReLU pairs runs fused in the first call
+    (the step, then the capture) and in the replay, none plain: the engaged
+    share is 1.0, and the program records nine fused forwards a run."""
+    from pointnet_like_pose_estimation_tpu_torch.models import get_model_spec
+    from pointnet_like_pose_estimation_tpu_torch.train import make_train_step
+
+    cfg, runs, data = _copies(card, "pointnet2_cls_ssg", 1, experiment="classification/r3_pointnet2_cls_ssg")
+    model, opt, _, gen = runs[0]
+    step = make_train_step(get_model_spec("pointnet2_cls_ssg"), cfg)
+    f0, p0 = bn_relu.launches, plain_bn_relu.launches
+    for i in range(2):
+        step(model, opt, {k: v[24 * i:24 * (i + 1)] for k, v in data.items()}, gen)
+    torch.cuda.synchronize()
+    fused, plain = bn_relu.launches - f0, plain_bn_relu.launches - p0
+    assert (fused, plain) == (18, 0) and fused / (fused + plain) == 1.0
+    programs = step.cache(card)
+    assert programs.launches(programs.keys()[0])["bn_relu"] == 9
+
+
 @pytest.mark.parametrize("name", ["pointnet2_cls_ssg", "pointnet2_cls_msg"])
 def test_fast_infer_on_card_matches_cpu(card, name):
     from pointnet_like_pose_estimation_tpu_torch.models import build_model
@@ -543,7 +630,8 @@ def test_request_replay_equals_eager_and_takes_new_inputs(card):
         elif key == ("request", 4, 1536):
             assert not torch.equal(first["log_probs"], replay["log_probs"])
     assert pipe.programs.captures == 2 and pipe.programs.replays == 3
-    assert pipe.programs.launches(("request", 4, 1536)) == {"fps": 3, "ball_query": 2, "fused_sa": 0}
+    assert pipe.programs.launches(("request", 4, 1536)) == {"fps": 3, "ball_query": 2, "fused_sa": 0,
+                                                           "bn_relu": 0, "bn_relu_plain": 0}
 
 
 @pytest.mark.parametrize("sizes", [[1300, 1700, 2100], [1024, 1500], [600, 900, 400]])
@@ -592,7 +680,8 @@ def test_executor_replay_equals_eager(card, name):
         outs.append(got[0])
     assert not torch.equal(outs[0], outs[1])
     assert (fwd.programs.captures, fwd.programs.replays) == (1, 2)
-    assert fwd.programs.launches(("executor", 4, 1024, 3)) == {"fps": 2, "ball_query": 0, "fused_sa": 2}
+    assert fwd.programs.launches(("executor", 4, 1024, 3)) == {"fps": 2, "ball_query": 0, "fused_sa": 2,
+                                                               "bn_relu": 0, "bn_relu_plain": 0}
 
 
 def test_captures_equal_the_distinct_buckets(card):
