@@ -17,6 +17,7 @@ from pointnet_like_pose_estimation_tpu_torch.ops import (
     sample_and_group,
     sample_and_group_all,
 )
+from pointnet_like_pose_estimation_tpu_torch.ops.grouping import count_grouped
 
 
 class SetAbstraction(nn.Module):
@@ -97,5 +98,5 @@ class SetAbstractionMSG(nn.Module):
             grouped = index_points(points, idx) - centroids[:, :, None, :]
             if features is not None:
                 grouped = torch.cat([index_points(features, idx), grouped], dim=-1)
-            grouped_list.append(grouped)
+            grouped_list.append(count_grouped(grouped))
         return centroids, grouped_list

@@ -1,5 +1,12 @@
 """Ball-query grouping (counterpart of ``ops/grouping.py`` of the JAX
-package), channels-last: grouped tensors are ``[B, S, K, C]``."""
+package), channels-last: grouped tensors are ``[B, S, K, C]``.
+
+``count_grouped`` adds the bytes of every grouped tensor that
+``sample_and_group``, ``sample_and_group_all`` and
+``SetAbstractionMSG._group`` build on one device (not the point-sharded
+groupings of ``parallel``) to ``count_grouped.bytes``; the
+request and step programs record a capture's bytes and add them at every
+replay, as they do the kernels' launches (``utils/programs.py``)."""
 
 from __future__ import annotations
 
@@ -9,6 +16,15 @@ import torch
 from pointnet_like_pose_estimation_tpu_torch.kernels import ball_group
 from pointnet_like_pose_estimation_tpu_torch.ops.geometry import index_points
 from pointnet_like_pose_estimation_tpu_torch.ops.sampling import farthest_point_sample
+
+
+def count_grouped(grouped: torch.Tensor) -> torch.Tensor:
+    """``grouped``, its bytes added to ``count_grouped.bytes``."""
+    count_grouped.bytes += grouped.numel() * grouped.element_size()
+    return grouped
+
+
+count_grouped.bytes = 0
 
 
 def query_ball_point(
@@ -58,6 +74,7 @@ def sample_and_group(
     grouped = index_points(points, idx) - centroids[:, :, None, :]
     if features is not None:
         grouped = torch.cat([grouped, index_points(features, idx)], dim=-1)
+    count_grouped(grouped)
     if return_fps:
         return centroids, grouped, fps_idx
     return centroids, grouped
@@ -71,4 +88,4 @@ def sample_and_group_all(points: torch.Tensor, features: torch.Tensor | None):
     grouped = points[:, None]
     if features is not None:
         grouped = torch.cat([grouped, features[:, None]], dim=-1)
-    return centroids, grouped
+    return centroids, count_grouped(grouped)

@@ -8,8 +8,9 @@ elsewhere. A request resamples its clusters to ``num_points`` (FPS when
 larger, tiling when smaller), normalizes them, classifies them with
 ``PipelineConfig.classifier`` (PointNet++ SSG by default), splices the
 predicted class as a one-hot onto every point, and runs the rotation, sign,
-translation and width heads, in ``PipelineConfig.dtype``; every float
-output is float32.
+translation and width heads that ``PipelineConfig`` names (the PointNet
+heads by default), in ``PipelineConfig.dtype``; every float output is
+float32.
 
 Each request is one compiled program, as in the JAX package: on a card a
 CUDA graph captured once per shape bucket and replayed
@@ -65,6 +66,12 @@ from pointnet_like_pose_estimation_tpu_torch.utils.profiling import span
 from pointnet_like_pose_estimation_tpu_torch.utils.programs import ProgramCache
 
 MODEL_KEYS = ("classifier", "rotation", "sign", "translation", "width")
+# the registry task and the inputs (``ModelSpec.input_kind``) of each model key:
+# the classifier takes the raw cloud, the heads the spliced cloud, and the
+# translation head the cloud's centroid beside it where it has a use for it
+MODEL_KINDS = {"classifier": ("classify", ("xyz",)), "rotation": ("rotation", ("spliced",)),
+              "sign": ("sign", ("spliced",)), "translation": ("translation", ("spliced", "spliced_mean")),
+              "width": ("width", ("spliced",))}
 
 
 @dataclasses.dataclass
@@ -73,8 +80,12 @@ class PipelineConfig:
     (distance cut, plane, outlier test, DBSCAN), the request size and the
     models. ``classifier`` is a registry name of task 'classify' on the raw
     cloud: ``pointnet2_cls_ssg``, ``pointnet2_cls_msg`` or ``pointnet_cls``.
-    ``dtype`` is the models' compute dtype, ``"float32"`` or
-    ``"bfloat16"`` (BatchNorm in float32 either way)."""
+    ``rotation``, ``sign``, ``translation`` and ``width`` are registry
+    names of the four heads (``MODEL_KINDS`` gives the task and inputs each
+    key takes), the vanilla PointNet heads by default; for example
+    ``rotation_msg``, ``sign_msg`` and ``translation_msg`` for the
+    reference's MSG heads. ``dtype`` is the models' compute dtype,
+    ``"float32"`` or ``"bfloat16"`` (BatchNorm in float32 either way)."""
 
     clip_range: tuple = (0.0, 2.0)
     clip_axis: int = 2
@@ -90,6 +101,10 @@ class PipelineConfig:
     num_points: int = 1024
     num_classes: int = 7
     classifier: str = "pointnet2_cls_ssg"
+    rotation: str = "rotation"
+    sign: str = "sign"
+    translation: str = "translation"
+    width: str = "width"
     dtype: str = "float32"
 
 
@@ -127,10 +142,16 @@ class GraspPipeline:
 
     @staticmethod
     def _make(cfg: PipelineConfig, key: str) -> nn.Module:
-        name = cfg.classifier if key == "classifier" else key
+        """The model that ``cfg`` names for ``key``; ``ValueError`` where its
+        task or inputs are not those of the key (``MODEL_KINDS``)."""
+        name = getattr(cfg, key)
         spec = get_model_spec(name)
-        if key == "classifier" and (spec.task, spec.input_kind) != ("classify", "xyz"):
-            raise ValueError(f"PipelineConfig.classifier: {cfg.classifier!r} does not classify raw clouds")
+        task, inputs = MODEL_KINDS[key]
+        if spec.task != task or spec.input_kind not in inputs:
+            if key == "classifier":
+                raise ValueError(f"PipelineConfig.classifier: {name!r} does not classify raw clouds")
+            raise ValueError(f"PipelineConfig.{key}: {name!r} is a {spec.task} model on {spec.input_kind} "
+                             f"input; the {key} key takes a {task} model on {' or '.join(inputs)} input")
         return build_model(name, cfg.num_classes)
 
     @classmethod

@@ -38,7 +38,9 @@ ReLU pairs that took the plain path). A capture
 launches nothing, so the cache takes back what the capture added, records
 it with the graph (``launches(key)``) and adds it again at every replay:
 the counts stay launches that ran on the card. The warm-up's launches ran,
-and stay counted.
+and stay counted. The bytes of the grouped tensors
+(``ops/grouping.py`` ``count_grouped``) are kept the same way
+(``grouped_bytes(key)``).
 
 ``ProgramCache.load`` and ``replay`` are a call in two parts, for a caller
 that marks the copy in as a stage of its own; a replay is the span
@@ -59,6 +61,7 @@ from pointnet_like_pose_estimation_tpu_torch.kernels.ball_group import ball_quer
 from pointnet_like_pose_estimation_tpu_torch.kernels.bn_relu import bn_relu, plain_bn_relu
 from pointnet_like_pose_estimation_tpu_torch.kernels.fps import fps
 from pointnet_like_pose_estimation_tpu_torch.kernels.fused_sa import fused_sa_infer
+from pointnet_like_pose_estimation_tpu_torch.ops.grouping import count_grouped
 from pointnet_like_pose_estimation_tpu_torch.utils.profiling import span
 
 # the launch counters of the kernel wrappers, by kernel name; bn_relu_plain
@@ -85,6 +88,7 @@ class _Program:
     graph: Any = None
     outputs: Any = None
     launches: dict[str, int] = dataclasses.field(default_factory=dict)
+    grouped_bytes: int = 0
     held: list = dataclasses.field(default_factory=list)
     addresses: tuple = ()
 
@@ -131,6 +135,12 @@ class _Cache:
         """Kernel launches, by kernel name, that one replay of ``key`` makes."""
         return dict(self._programs[key].launches)
 
+    def grouped_bytes(self, key) -> int:
+        """Bytes of the grouped tensors that the capture of ``key`` recorded,
+        which each replay adds to ``count_grouped.bytes`` (0 on the CPU, where
+        every call runs the function, which counts them itself)."""
+        return self._programs[key].grouped_bytes
+
     def _store(self, key, prog: _Program) -> None:
         self._programs[key] = prog
         if len(self._programs) > MAX_PROGRAMS:
@@ -165,7 +175,7 @@ class _Cache:
     def _capture(self, prog: _Program) -> None:
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
-        before = _launch_counts()
+        before, grouped = _launch_counts(), count_grouped.bytes
         graph = torch.cuda.CUDAGraph()
         # no collection while capturing: a graph the collector frees then (one
         # held in a reference cycle, as a program's function and its owner
@@ -181,6 +191,7 @@ class _Cache:
             for name, count in _launch_counts().items():
                 prog.launches[name] = count - before[name]
                 COUNTED[name].launches = before[name]
+            prog.grouped_bytes, count_grouped.bytes = count_grouped.bytes - grouped, grouped
         prog.graph = graph
 
     def _replay(self, prog: _Program):
@@ -191,6 +202,7 @@ class _Cache:
             prog.graph.replay()
         for name, count in prog.launches.items():
             COUNTED[name].launches += count
+        count_grouped.bytes += prog.grouped_bytes
         return prog.outputs
 
 

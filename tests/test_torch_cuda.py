@@ -634,6 +634,35 @@ def test_request_replay_equals_eager_and_takes_new_inputs(card):
                                                            "bn_relu": 0, "bn_relu_plain": 0}
 
 
+def test_msg_request_replay_equals_eager_and_counts_its_grouped_bytes(card):
+    """The request program on the MSG classifier and MSG heads: its replay
+    against its function called eagerly on the card (classes exact, floats
+    within 1e-5; expected bit for bit), the launches its capture recorded
+    (the resampling FPS, two levels of the classifier and of the rotation
+    head, one of the sign and translation heads), and the grouped bytes it
+    recorded, which the warm-up and the replay each add: at K = 4, an eighth
+    of a 32-cluster request's 2,841,591,808."""
+    from pointnet_like_pose_estimation_tpu_torch.ops.grouping import count_grouped
+    from pointnet_like_pose_estimation_tpu_torch.pipeline import GraspPipeline, PipelineConfig
+
+    cfg = PipelineConfig(classifier="pointnet2_cls_msg", rotation="rotation_msg", sign="sign_msg",
+                         translation="translation_msg")
+    pipe = GraspPipeline.from_random(cfg, seed=2, device="cuda")
+    rng = np.random.default_rng(4)
+    clusters = (rng.uniform(-0.5, 0.5, (4, 1, 3)) + 0.05 * rng.standard_normal((4, 1300, 3))).astype(np.float32)
+    key, fn, inputs, _ = pipe._request_call(clusters)
+    g0 = count_grouped.bytes
+    replay = pipe.programs(key, fn, inputs)
+    torch.cuda.synchronize()
+    assert pipe.programs.grouped_bytes(key) == 2_841_591_808 // 8
+    assert count_grouped.bytes - g0 == 2 * pipe.programs.grouped_bytes(key)
+    assert pipe.programs.launches(key) == {"fps": 7, "ball_query": 6, "fused_sa": 0, "bn_relu": 0,
+                                           "bn_relu_plain": 0}
+    with torch.inference_mode():
+        eager = fn(*(x.to(card) for x in inputs))
+    assert _gap(replay, eager) <= 1e-5
+
+
 @pytest.mark.parametrize("sizes", [[1300, 1700, 2100], [1024, 1500], [600, 900, 400]])
 def test_scene_replay_equals_eager(card, sizes):
     from pointnet_like_pose_estimation_tpu_torch.pipeline import GraspPipeline
