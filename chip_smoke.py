@@ -603,7 +603,7 @@ def kernel_phase(device) -> list[dict]:
                     "one call at each of the eight shapes, 32 clouds"))
 
     return [kernel_entry(name, source, replaces, err[name], shapes, per)
-            for name, source, replaces, shapes, per in entries] + [bn_relu_entry(device)]
+            for name, source, replaces, shapes, per in entries] + [bn_relu_entry(device), bn_relu_eval_entry(device)]
 
 
 def bn_relu_entry(device) -> dict:
@@ -697,6 +697,119 @@ def bn_relu_entry(device) -> dict:
                          "one train step of pointnet2_cls_ssg at B = 24: its nine shared-MLP pairs, "
                          "forward and backward")
     entry["library_ms"] = sum(s["library_ms"] for s in shapes)
+    return entry
+
+
+def eval_pair_shapes(device) -> dict:
+    """The eval-mode BatchNorm + ReLU pairs of one request of 32 clusters
+    of 2048 points, by model set: ``{"ssg": {(kind, shape): count}, "msg":
+    ...}``, kind ``eval`` (``[R, C]``) or ``pooled`` (``[G, K, C]``), taken
+    from the calls of an eager request on seeded models."""
+    import collections
+
+    from pointnet_like_pose_estimation_tpu_torch.nn import layers
+    from pointnet_like_pose_estimation_tpu_torch.pipeline import GraspPipeline, PipelineConfig
+
+    configs = {"ssg": PipelineConfig(),
+               "msg": PipelineConfig(classifier="pointnet2_cls_msg", rotation="rotation_msg", sign="sign_msg",
+                                     translation="translation_msg")}
+    clusters = blobs(np.random.default_rng(4), 32, 2048)
+    found = {}
+    saved = layers.bn_relu_eval, layers.bn_relu_eval_pool
+    for name, cfg in configs.items():
+        seen = collections.Counter()
+
+        def spy(kind, fn):
+            def call(x, bn):
+                seen[(kind, tuple(x.shape[-1:] if kind == "eval" else x.shape[-2:]),
+                      int(np.prod(x.shape[:-1 if kind == "eval" else -2])))] += 1
+                return fn(x, bn)
+            return call
+
+        layers.bn_relu_eval, layers.bn_relu_eval_pool = spy("eval", saved[0]), spy("pooled", saved[1])
+        try:
+            with uncounted():
+                eager_request(GraspPipeline.from_random(cfg, seed=5, device=device), clusters)
+        finally:
+            layers.bn_relu_eval, layers.bn_relu_eval_pool = saved
+        found[name] = {(kind, (lead, *tail)): n for (kind, tail, lead), n in seen.items()}
+    return found
+
+
+def bn_relu_eval_entry(device) -> dict:
+    """The eval BatchNorm + ReLU passes (kernels/bn_relu.py bn_relu_eval,
+    bn_relu_eval_pool) at every shape of a 32-cluster request of both
+    serving cells' models: each against the plain pair (torch.relu of
+    BatchNormF32 in eval mode, and .amax(dim=-2) after a pooled one) bit for
+    bit, then its time (a call in a CUDA graph; the calls cycle over copies
+    of the input that together pass 256 MB, five times the L2 cache, so
+    that each reads device memory and the writes reach it, as in a request)
+    beside its bound (x read once, the output written once, at the HBM
+    rate), its plain version and the plain pair (library_ms, which the port
+    no longer calls in serving). The entry's times are one SSG request's
+    (each shape times its pairs); ``msg_request`` holds the MSG request's."""
+    import torch
+
+    from pointnet_like_pose_estimation_tpu_torch.kernels import bn_relu as fused
+    from pointnet_like_pose_estimation_tpu_torch.nn import BatchNormF32
+
+    counts = eval_pair_shapes(device)
+    shapes, err = [], 0
+    with uncounted():
+        for kind, shape in sorted(set(counts["ssg"]) | set(counts["msg"])):
+            g = torch.Generator(device=device).manual_seed(sum(shape))
+            C = shape[-1]
+            rows = int(np.prod(shape[:-1]))
+            x = (torch.randn(rows, C, generator=g, device=device) * (torch.rand(C, generator=g, device=device) + 0.1)
+                 + 0.3 * torch.randn(C, generator=g, device=device)).reshape(shape)
+            bn = BatchNormF32(C).to(device).eval()
+            with torch.no_grad():
+                bn.weight.uniform_(0.5, 1.5, generator=g)
+                bn.bias.normal_(0.0, 0.2, generator=g)
+                bn.running_mean.normal_(0.0, 0.3, generator=g)
+                bn.running_var.uniform_(0.5, 2.0, generator=g)
+            bn.requires_grad_(False)
+            args = (bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps)
+            copies = [x] + [x.clone() for _ in range(-(-256 * 2**20 // (4 * x.numel())) - 1)]
+            turn = iter(range(2**62))
+
+            def cold():
+                return copies[next(turn) % len(copies)]
+
+            if kind == "eval":
+                kernel, reference = (lambda: fused.bn_relu_eval(cold(), bn)), (lambda: fused.eval_reference(x, *args))
+                library = lambda: torch.relu(bn(cold()))
+                nbytes = 8 * x.numel()
+            else:
+                kernel = lambda: fused.bn_relu_eval_pool(cold(), bn)
+                reference = lambda: fused.eval_max_reference(x, *args)
+                library = lambda: torch.relu(bn(cold())).amax(dim=-2)
+                nbytes = 4 * (x.numel() + shape[0] * C)
+            reps = max(10, len(copies))
+            with torch.inference_mode():
+                got, want = kernel(), library()
+            torch.cuda.synchronize()
+            differ = int((got != want).sum())
+            check(differ == 0, f"bn_relu_eval {kind} {list(shape)}: {differ} elements differ from the plain pair")
+            err = max(err, differ)
+            del got, want
+            bound = 1e3 * nbytes / HBM_BYTES_PER_S
+            ms = cuda_graph_ms(kernel, reps)
+            check(ms >= bound, f"bn_relu_eval {kind} {list(shape)}: {ms} ms reads over 100% of its bound {bound} ms")
+            shapes.append({"call": kind, "shape": list(shape), "ms": ms, "plain_ms": cuda_ms(reference, 3),
+                           "library_ms": cuda_graph_ms(library, reps), "bound_ms": bound, "bound_by": "bytes",
+                           "ssg_pairs": counts["ssg"].get((kind, shape), 0),
+                           "msg_pairs": counts["msg"].get((kind, shape), 0)})
+        log("  bn_relu_eval: every shape of both requests equals the plain pair bit for bit")
+    entry = kernel_entry("bn_relu_eval", "pointnet_like_pose_estimation_tpu_torch/kernels/csrc/bn_relu.cu",
+                         "none: XLA fused the JAX package's eval BatchNorm, ReLU and max on the TPU", float(err),
+                         shapes, "one clusters_k32 request (32 clusters x 2048 points): its 22 eval and 7 pooled "
+                         "pairs; msg_request: one clusters_msg_k32 request's 48 and 23")
+    for key, into in (("ssg_pairs", entry), ("msg_pairs", entry.setdefault("msg_request", {}))):
+        for field in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            into[field] = sum(s[key] * s[field] for s in shapes)
+    log(f"  bn_relu_eval a request: SSG {json.dumps({k: entry[k] for k in ('ms', 'bound_ms', 'library_ms')})}, "
+        f"MSG {json.dumps(entry['msg_request'])}")
     return entry
 
 
@@ -992,7 +1105,8 @@ def programs_line(what: str, cache) -> dict:
 PROFILED_KERNELS = {"fps": ("fps_register_kernel", "fps_register_spliced_kernel", "fps_dist_kernel",
                             "fps_cluster_kernel"),
                     "ball_query": ("ball_query_kernel",), "fused_sa": ("fused_sa_kernel",),
-                    "bn_relu": ("bn_relu_apply_kernel",)}
+                    "bn_relu": ("bn_relu_apply_kernel",), "bn_relu_eval": ("bn_relu_eval_kernel",),
+                    "bn_relu_eval_pool": ("bn_relu_eval_max_kernel",)}
 
 
 def profiled_launches(fn) -> dict[str, int]:
@@ -1126,6 +1240,7 @@ def serving_phase(pipe, cpu, kernels: list[dict]) -> dict:
     import torch
 
     from pointnet_like_pose_estimation_tpu_torch.kernels.ball_group import ball_query_multi
+    from pointnet_like_pose_estimation_tpu_torch.kernels.bn_relu import bn_relu_eval, bn_relu_eval_pool
     from pointnet_like_pose_estimation_tpu_torch.kernels.fps import fps
 
     fix = np.load(FIXTURE)
@@ -1142,20 +1257,22 @@ def serving_phase(pipe, cpu, kernels: list[dict]) -> dict:
 
     float_keys = ("log_probs", "rotation_deg", "rotation_matrix", "sign_prob", "translation", "width")
     outputs = []
-    fps.launches = ball_query_multi.launches = 0
+    fps.launches = ball_query_multi.launches = bn_relu_eval.launches = bn_relu_eval_pool.launches = 0
     for name, clusters in requests:
         f0, b0 = fps.launches, ball_query_multi.launches
         out, runs = runs_of(pipe.programs, lambda: pipe.infer_clusters(clusters))
         key = pipe._request_call(clusters)[0]
         want_fps = 3 if clusters.shape[1] > 1024 else 2
         check(pipe.programs.launches(key) == {"fps": want_fps, "ball_query": 2, "fused_sa": 0, "bn_relu": 0,
-                                              "bn_relu_plain": 0},
+                                              "bn_relu_plain": 0, "bn_relu_eval": 22, "bn_relu_eval_pool": 7,
+                                              "bn_relu_eval_plain": 0},
               f"{name}: the program of {key} records {pipe.programs.launches(key)}")
         got_counts = (fps.launches - f0, ball_query_multi.launches - b0)
         check(got_counts == (want_fps * runs, 2 * runs),
               f"{name}: launches fps/ball_query {got_counts}, want ({want_fps}, 2) a run, {runs} runs")
         outputs.append((name, clusters, out, key, runs))
-    launches = {"fps": fps.launches, "ball_query": ball_query_multi.launches}
+    launches = {"fps": fps.launches, "ball_query": ball_query_multi.launches,
+                "bn_relu_eval": bn_relu_eval.launches + bn_relu_eval_pool.launches}
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)
         check(k["launches"] > 0 or k["name"] not in launches, f"{k['name']} never launched on the main path")
@@ -1166,7 +1283,8 @@ def serving_phase(pipe, cpu, kernels: list[dict]) -> dict:
     with uncounted():
         traced = profiled_launches(lambda: pipe.infer_clusters(traced_clusters))
     recorded = pipe.programs.launches(traced_key)
-    check(recorded == {"fps": 3, "ball_query": 2, "fused_sa": 0, "bn_relu": 0, "bn_relu_plain": 0}
+    check(recorded == {"fps": 3, "ball_query": 2, "fused_sa": 0, "bn_relu": 0, "bn_relu_plain": 0,
+                       "bn_relu_eval": 22, "bn_relu_eval_pool": 7, "bn_relu_eval_plain": 0}
           and all(traced[k] == recorded[k] for k in traced),
           f"the profiler saw {traced} in a replay of {traced_key}, its capture recorded {recorded}")
     log(f"  one replay of {traced_key} under torch.profiler: {json.dumps(traced)}, as its capture recorded")

@@ -1,6 +1,6 @@
-"""Train-mode BatchNorm + ReLU over channels-last ``[R, C]``: the CUDA
-kernels, their plain PyTorch versions, and the autograd Function that joins
-forward and backward.
+"""BatchNorm + ReLU over channels-last ``[R, C]``: the CUDA kernels, their
+plain PyTorch versions, and, in train mode, the autograd Function that
+joins forward and backward.
 
 ``bn_relu(x, bn)`` computes ``torch.relu(bn(x))`` for a train-mode
 ``nn/layers.py`` ``BatchNormF32`` in one ``torch.autograd.Function``: the
@@ -13,9 +13,20 @@ decides which pairs take it (``nn/layers.py`` ``plain_reason``); the others
 go through ``plain_bn_relu``. It replaces no TPU kernel: XLA fused these
 ops on the TPU, and PyTorch runs them as some ten passes of its own kernels.
 
-Both count: ``bn_relu.launches`` the fused forwards on the card,
-``plain_bn_relu.launches`` the train-mode pairs that took the plain path
-(``utils/programs.py`` ``COUNTED`` counts both at every replay of a graph).
+In eval mode ``bn_relu_eval(x, bn)`` computes ``torch.relu(bn(x))`` from
+the running statistics in one pass, and ``bn_relu_eval_pool(x, bn)``
+``torch.relu(bn(x)).amax(dim=-2)`` in one pass that writes only the
+maxima, both rounded as PyTorch's own eval BatchNorm rounds, so that they
+equal the plain pair bit for bit (``csrc/bn_relu.cu``, "Eval mode"). They
+have no backward: ``plain_reason`` sends an eval pair whose output needs a
+gradient to the plain path.
+
+Every path counts: ``bn_relu.launches`` the fused train forwards on the
+card, ``bn_relu_eval.launches`` and ``bn_relu_eval_pool.launches`` the
+eval passes there, ``plain_bn_relu.launches`` and
+``plain_bn_relu_eval.launches`` the train- and eval-mode pairs that took
+the plain path (``utils/programs.py`` ``COUNTED`` counts all five at every
+replay of a graph).
 """
 
 from __future__ import annotations
@@ -31,6 +42,15 @@ from pointnet_like_pose_estimation_tpu_torch.kernels import _build
 # threads on each of the card's 132 SMs)
 THREADS = 256
 MAX_ROW_BLOCKS = 4 * 132
+# what its pooled eval pass takes (kPoolThreads: the threads that fill the
+# card, 512 on each SM; kMinPieceRows: the fewest rows of a piece of a group)
+POOL_THREADS = 512 * 132
+MIN_PIECE_ROWS = 8
+# PyTorch's eval BatchNorm takes its channels-last kernel, whose rounding
+# the eval passes repeat, for a tensor of fewer elements than this
+# (canUse32BitIndexMath); from it on its general kernel, which rounds
+# otherwise, so larger pairs keep the plain path (nn/layers.py plain_reason)
+INT32_ELEMENTS = 2**31 - 1
 
 
 class BnReluPlan(NamedTuple):
@@ -67,7 +87,6 @@ def forward_reference(x, mean, rstd, weight, bias) -> torch.Tensor:
     return torch.relu((x - mean) * (rstd * weight) + bias)
 
 
-
 def backward_reference(x, dy, mean, rstd, weight, bias) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the backward: ``(dx, grad_weight, grad_bias)`` from
     ``x``, the output's gradient ``dy`` and the forward's mean and rstd. The
@@ -82,6 +101,58 @@ def backward_reference(x, dy, mean, rstd, weight, bias) -> tuple[torch.Tensor, t
     xh = d * rstd
     sg, sgx = g.sum(dim=0), (g * xh).sum(dim=0)
     return scale * ((g - sg / R) - xh * (sgx / R)), sgx, sg
+
+
+class BnReluPoolPlan(NamedTuple):
+    """The launch geometry of the pooled eval pass of ``csrc/bn_relu.cu``."""
+
+    tpr: int          # threads a lane, one 16-byte column group (4 channels) each
+    rpi: int          # lanes a block, one piece of a group each
+    chunks: int       # column chunks of THREADS groups (gridDim.y)
+    pieces: int       # pieces a group, merged by atomicMax where above 1
+    piece_rows: int   # rows a piece (the last may have fewer)
+    blocks: int       # gridDim.x
+
+
+def bn_relu_pool_plan(G: int, K: int, C: int) -> BnReluPoolPlan:
+    """Launch plan for ``[G, K, C]`` pooled over K: ``min(C / 4, THREADS)``
+    threads span a row; a group is one piece unless ``G * C / 4`` threads
+    fall short of ``POOL_THREADS``, then as many more pieces as fill it, of
+    at least ``MIN_PIECE_ROWS`` rows. The kernel computes the same figures
+    and refuses a launch whose ``pieces`` differs. Raises ``ValueError``
+    where G or K is below 1 or C is no multiple of 4."""
+    if G < 1 or K < 1 or C < 4 or C % 4:
+        raise ValueError(f"bn_relu: no pooled plan for G={G}, K={K}, C={C} "
+                         "(want G, K >= 1, C a multiple of 4)")
+    groups = C // 4
+    tpr = min(groups, THREADS)
+    rpi = THREADS // tpr
+    pieces = max(1, min(_ceil_div(POOL_THREADS, G * groups), K // MIN_PIECE_ROWS))
+    piece_rows = _ceil_div(K, pieces)
+    pieces = _ceil_div(K, piece_rows)
+    return BnReluPoolPlan(tpr, rpi, _ceil_div(groups, tpr), pieces, piece_rows, _ceil_div(G * pieces, rpi))
+
+
+def eval_reference(x, running_mean, running_var, weight, bias, eps: float) -> torch.Tensor:
+    """Plain version of the eval pass over ``[R, C]``: ``relu(w * (x -
+    running_mean) * invstd + b)`` with ``invstd = rsqrt(running_var +
+    eps)``, rounded as PyTorch's eval BatchNorm on the card rounds it:
+    ``w * (x - mean)`` rounded, then ``* invstd + b`` rounded once, as a
+    fused multiply-add (the product is exact in float64, and the sum
+    rounded there and again to float32 parts from one rounding only where
+    the float64 sum lies on a float32 tie)."""
+    p = weight * (x - running_mean)
+    t = p.double() * torch.rsqrt(running_var + eps).double() + bias.double()
+    return torch.relu(t.to(x.dtype))
+
+
+def eval_max_reference(x, running_mean, running_var, weight, bias, eps: float) -> torch.Tensor:
+    """Plain version of the pooled eval pass: ``eval_reference`` of ``[G,
+    K, C]`` and its max over K (``amax``: a NaN in a group gives NaN)."""
+    G, K, C = x.shape
+    return eval_reference(x.reshape(G * K, C), running_mean, running_var, weight, bias, eps).reshape(
+        G, K, C).amax(dim=1)
+
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -146,6 +217,42 @@ def _backward_kernel(x, dy, mean, rstd, weight, bias):
     return dx, grad_w, grad_b
 
 
+def _eval_kernel(x, running_mean, running_var, weight, bias, eps: float) -> torch.Tensor:
+    _validate(x, running_mean, running_var, weight, bias)
+    R, C = x.shape
+    y = torch.empty_like(x)
+    lib = _build.library("bn_relu")
+    lib.plpe_bn_relu_eval.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    )
+    lib.plpe_bn_relu_eval.restype = ctypes.c_int
+    code = lib.plpe_bn_relu_eval(
+        x.data_ptr(), y.data_ptr(), running_mean.data_ptr(), running_var.data_ptr(), weight.data_ptr(),
+        bias.data_ptr(), R, C, bn_relu_plan(R, C).blocks, eps,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, code, "bn_relu eval")
+    return y
+
+
+def _eval_max_kernel(x, running_mean, running_var, weight, bias, eps: float) -> torch.Tensor:
+    G, K, C = x.shape
+    _validate(x.reshape(G * K, C), running_mean, running_var, weight, bias)
+    y = torch.empty((G, C), dtype=x.dtype, device=x.device)
+    lib = _build.library("bn_relu")
+    lib.plpe_bn_relu_eval_max.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+    )
+    lib.plpe_bn_relu_eval_max.restype = ctypes.c_int
+    code = lib.plpe_bn_relu_eval_max(
+        x.data_ptr(), y.data_ptr(), running_mean.data_ptr(), running_var.data_ptr(), weight.data_ptr(),
+        bias.data_ptr(), G, K, C, bn_relu_pool_plan(G, K, C).pieces, eps,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, code, "bn_relu eval pooled")
+    return y
+
+
 class BatchNormReLU(torch.autograd.Function):
     """``relu(batch_norm(x))`` in train mode over ``[R, C]``, updating the
     running statistics in place. Keeps ``x``, the mean and rstd for the
@@ -194,13 +301,53 @@ def bn_relu(x: torch.Tensor, bn) -> torch.Tensor:
     return y.reshape(shape)
 
 
+def _eval_args(bn):
+    return bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps
+
+
+def bn_relu_eval(x: torch.Tensor, bn) -> torch.Tensor:
+    """``torch.relu(bn(x))`` for an eval-mode ``BatchNormF32`` ``bn`` over
+    the trailing axis of float32 ``x``, in one pass: one read of ``x``, one
+    write of the output. Gives no gradient."""
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    if x.is_cuda:
+        y = _eval_kernel(_aligned(x2), *_eval_args(bn))
+        bn_relu_eval.launches += 1
+    else:
+        y = eval_reference(x2, *_eval_args(bn))
+    return y.reshape(shape)
+
+
+def bn_relu_eval_pool(x: torch.Tensor, bn) -> torch.Tensor:
+    """``torch.relu(bn(x)).amax(dim=-2)`` for an eval-mode
+    ``BatchNormF32`` ``bn``, in one pass: one read of ``x [..., K, C]``, one
+    write of ``[..., C]``. Gives no gradient."""
+    shape = x.shape
+    x3 = x.reshape(-1, shape[-2], shape[-1])
+    if x.is_cuda:
+        y = _eval_max_kernel(_aligned(x3), *_eval_args(bn))
+        bn_relu_eval_pool.launches += 1
+    else:
+        y = eval_max_reference(x3, *_eval_args(bn))
+    return y.reshape(*shape[:-2], shape[-1])
+
+
 def plain_bn_relu(x: torch.Tensor, bn) -> torch.Tensor:
-    """``torch.relu(bn(x))``, the pair as PyTorch runs it; counts the calls
-    in train mode (those ``bn_relu`` did not take)."""
-    if bn.training:
-        plain_bn_relu.launches += 1
+    """``torch.relu(bn(x))``, the pair as PyTorch runs it, for a train-mode
+    pair that ``bn_relu`` did not take; counts the calls."""
+    plain_bn_relu.launches += 1
+    return torch.relu(bn(x))
+
+
+def plain_bn_relu_eval(x: torch.Tensor, bn) -> torch.Tensor:
+    """The same for an eval-mode pair that the eval passes did not take."""
+    plain_bn_relu_eval.launches += 1
     return torch.relu(bn(x))
 
 
 bn_relu.launches = 0
+bn_relu_eval.launches = 0
+bn_relu_eval_pool.launches = 0
 plain_bn_relu.launches = 0
+plain_bn_relu_eval.launches = 0

@@ -1,5 +1,7 @@
-// Train-mode BatchNorm followed by ReLU over channels-last [R, C] float32,
-// forward and backward, for Hopper (sm_90a).
+// BatchNorm followed by ReLU over channels-last [R, C] float32, for Hopper
+// (sm_90a): in train mode forward and backward; in eval mode one forward
+// pass, and one that also takes the max over each group of rows (below,
+// "Eval mode").
 //
 // Replaces no TPU kernel. On the TPU, XLA fused the JAX package's
 // train-mode BatchNorm (nn/layers.py batch_norm_f32) and the ReLU after it
@@ -345,6 +347,192 @@ __global__ void __launch_bounds__(kThreads) bn_relu_grad_input_kernel(
   for (; r < p.r1; r += g.rpi) store4(dx, r, g, p.cg, one(load4(x, r, g, p.cg), load4(dy, r, g, p.cg)));
 }
 
+// ---- eval mode ---------------------------------------------------------
+//
+// Eval mode: the running statistics. Replaces no TPU kernel either: XLA
+// fused the JAX package's eval BatchNorm, the ReLU and the max over each
+// group into the neighbouring ops. PyTorch ran them as three passes of its
+// own (batch_norm_transform_input_channels_last_kernel, the ReLU's clamp
+// and, where a max over the group follows, a MaxNanFunctor reduce), which
+// read every activation three times and wrote it twice, and the last
+// layer of an MLP once more.
+//
+// What it computes, per channel c, with invstd = rsqrtf(running_var + eps)
+// (PyTorch's batch_norm_calc_invstd on the card: the approximate
+// reciprocal square root, as torch.rsqrt, and not 1 / sqrt, which parts
+// from it in about a third of the channels):
+//
+//   y = relu(w * (x - running_mean) * invstd + b)
+//
+// rounded as PyTorch's channels-last transform
+// (batch_norm_transform_input_channels_last_kernel) rounds it: the
+// difference and the product with w each on their own, then the product
+// with invstd and the sum with b in one fused multiply-add (PyTorch's
+// build contracts them; this file builds with -fmad=false, so the FMA is
+// spelled out; the two roundings apart part from it in about a quarter of
+// the elements). So y equals the plain pair, torch.relu(BatchNormF32(x)), bit
+// for bit. PyTorch takes that kernel for tensors of fewer than 2^31 - 1
+// elements; a larger one goes to its general kernel, which rounds
+// otherwise, and kernels/bn_relu.py leaves those to the plain pair. The
+// ReLU is torch.relu's clamp (NaN passes).
+//
+// The pooled pass reads [G, K, C] (K rows a group, contiguous) and writes
+// only out[g][c] = max over k of y[g][k][c], with amax's NaN rule (a NaN
+// anywhere in the group gives NaN). The max is exact in any order, so it
+// equals .amax(dim=-2) of the plain pair's output. A running maximum starts
+// at +0 (the ReLU's floor) and takes t where t > it or t is NaN.
+//
+// What bounds both: device memory. Each element costs five flops against
+// 8 bytes (apply: read x, write y) or 4 bytes (pooled: read x; the output
+// is K times smaller). The design:
+//
+// - The apply pass is the train apply's geometry (Geometry above): 16-byte
+//   column groups, four loads in flight a thread, at most kMaxRowBlocks
+//   slabs. A thread forms its four channels' invstd once.
+// - The pooled pass gives each row of a block's threads (a "lane", tpr
+//   threads across the channels) one piece of a group: the whole group,
+//   or, where G * C / 4 threads would not fill the card (kPoolThreads: 512
+//   on each SM), a part of it, of at least kMinPieceRows rows, so that
+//   the few large groups of the global layers and the heads' global max
+//   (G = 32, K up to 1024, C = 1024) are read by the whole card. A lane
+//   reads its rows eight 16-byte loads at a time and keeps the maxima in
+//   registers. A group of one
+//   piece writes its maxima with one store. Pieces of one group merge
+//   through atomicMax on the bits into an output zeroed first on the
+//   stream: the maxima are +0 or above, or NaN, and all of those order as
+//   unsigned integers (+0 < positive floats < +inf < NaN), so the merge
+//   gives the same bits in any order, and a NaN wins.
+// - Nothing is allocated; every launch (and the zeroing) goes on the
+//   caller's stream, so both passes capture into a CUDA graph.
+
+constexpr int kUnrollPool = 8;        // loads in flight a thread, pooled pass
+constexpr int kPoolThreads = 512 * 132;
+constexpr int kMinPieceRows = 8;
+
+// Four channels' running mean, invstd (as batch_norm_calc_invstd forms
+// it), weight and bias.
+struct EvalChannels {
+  float m[4], inv[4], w[4], b[4];
+};
+
+__device__ __forceinline__ EvalChannels eval_channels_of(const float* running_mean, const float* running_var,
+                                                         const float* weight, const float* bias, int cg,
+                                                         float eps) {
+  EvalChannels k;
+  load_channels(running_mean, cg, k.m);
+  load_channels(running_var, cg, k.inv);
+  load_channels(weight, cg, k.w);
+  load_channels(bias, cg, k.b);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) k.inv[c] = rsqrtf(__fadd_rn(k.inv[c], eps));
+  return k;
+}
+
+// The eval BatchNorm of one element, before the ReLU, as PyTorch's
+// channels-last transform rounds it.
+__device__ __forceinline__ float eval_bn(const EvalChannels& k, int c, float x) {
+  return __fmaf_rn(__fmul_rn(k.w[c], __fsub_rn(x, k.m[c])), k.inv[c], k.b[c]);
+}
+
+__global__ void __launch_bounds__(kThreads) bn_relu_eval_kernel(
+    const float* __restrict__ x, float* __restrict__ y, const float* __restrict__ running_mean,
+    const float* __restrict__ running_var, const float* __restrict__ weight, const float* __restrict__ bias,
+    float eps, Geometry g) {
+  const Place p = place_of(g);
+  if (!p.active) return;
+  const EvalChannels k = eval_channels_of(running_mean, running_var, weight, bias, p.cg, eps);
+  auto one = [&](const float4& v) {
+    float o[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float t = eval_bn(k, c, at(v, c));
+      o[c] = t != t ? t : fmaxf(t, 0.0f);  // torch.relu's clamp: NaN passes
+    }
+    return make4(o);
+  };
+  int64_t r = p.r0 + p.ty;
+  for (; r + (kUnrollOne - 1) * g.rpi < p.r1; r += kUnrollOne * g.rpi) {
+    float4 v[kUnrollOne];
+#pragma unroll
+    for (int u = 0; u < kUnrollOne; ++u) v[u] = load4(x, r + u * g.rpi, g, p.cg);
+#pragma unroll
+    for (int u = 0; u < kUnrollOne; ++u) store4(y, r + u * g.rpi, g, p.cg, one(v[u]));
+  }
+  for (; r < p.r1; r += g.rpi) store4(y, r, g, p.cg, one(load4(x, r, g, p.cg)));
+}
+
+struct PoolGeometry {
+  int64_t groups;  // G
+  int rows;        // K, rows a group
+  int channels;    // C
+  int cgroups;     // C / 4
+  int tpr;         // threads a lane
+  int rpi;         // lanes a block
+  int chunks;      // column chunks (gridDim.y)
+  int pieces;      // pieces a group
+  int piece_rows;  // rows a piece (the last may have fewer)
+  int64_t blocks;  // gridDim.x
+};
+
+// The same rule as kernels/bn_relu.py bn_relu_pool_plan.
+bool make_pool_geometry(int64_t G, int K, int C, PoolGeometry* g) {
+  if (G <= 0 || K <= 0 || C <= 0 || C % 4 != 0) return false;
+  g->groups = G;
+  g->rows = K;
+  g->channels = C;
+  g->cgroups = C / 4;
+  g->tpr = g->cgroups < kThreads ? g->cgroups : kThreads;
+  g->rpi = kThreads / g->tpr;
+  g->chunks = (g->cgroups + g->tpr - 1) / g->tpr;
+  const int64_t threads = G * g->cgroups;
+  int64_t pieces = (kPoolThreads + threads - 1) / threads;  // 1 where the groups fill the card
+  if (pieces > K / kMinPieceRows) pieces = K / kMinPieceRows;
+  if (pieces < 1) pieces = 1;
+  g->piece_rows = static_cast<int>((K + pieces - 1) / pieces);
+  g->pieces = (K + g->piece_rows - 1) / g->piece_rows;
+  g->blocks = (G * g->pieces + g->rpi - 1) / g->rpi;
+  return g->blocks < (int64_t{1} << 31);
+}
+
+__global__ void __launch_bounds__(kThreads) bn_relu_eval_max_kernel(
+    const float* __restrict__ x, float* __restrict__ y, const float* __restrict__ running_mean,
+    const float* __restrict__ running_var, const float* __restrict__ weight, const float* __restrict__ bias,
+    float eps, PoolGeometry g) {
+  const int ty = threadIdx.x / g.tpr;
+  const int cg = blockIdx.y * g.tpr + (threadIdx.x - ty * g.tpr);
+  const int64_t piece = static_cast<int64_t>(blockIdx.x) * g.rpi + ty;
+  if (ty >= g.rpi || cg >= g.cgroups || piece >= g.groups * g.pieces) return;
+  const int64_t grp = piece / g.pieces;
+  const int k0 = static_cast<int>(piece - grp * g.pieces) * g.piece_rows;
+  const int k1 = min(g.rows, k0 + g.piece_rows);
+  const EvalChannels k = eval_channels_of(running_mean, running_var, weight, bias, cg, eps);
+  const float4* rows = reinterpret_cast<const float4*>(x + grp * g.rows * g.channels) + cg;
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  auto take = [&](const float4& v) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float t = eval_bn(k, c, at(v, c));
+      acc[c] = (t != t || t > acc[c]) ? t : acc[c];  // amax of the ReLU: NaN wins, -0 never replaces +0
+    }
+  };
+  int r = k0;
+  for (; r + kUnrollPool <= k1; r += kUnrollPool) {
+    float4 v[kUnrollPool];
+#pragma unroll
+    for (int u = 0; u < kUnrollPool; ++u) v[u] = __ldg(rows + static_cast<int64_t>(r + u) * g.cgroups);
+#pragma unroll
+    for (int u = 0; u < kUnrollPool; ++u) take(v[u]);
+  }
+  for (; r < k1; ++r) take(__ldg(rows + static_cast<int64_t>(r) * g.cgroups));
+  float* out = y + grp * g.channels + 4 * cg;
+  if (g.pieces == 1) {
+    *reinterpret_cast<float4*>(out) = make4(acc);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) atomicMax(reinterpret_cast<unsigned int*>(out) + c, __float_as_uint(acc[c]));
+  }
+}
+
 int finish_blocks(const Geometry& g) { return (g.channels + kThreads / 32 - 1) / (kThreads / 32); }
 
 }  // namespace
@@ -389,6 +577,41 @@ int plpe_bn_relu_backward(const float* x, const float* dy, const float* mean, co
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   bn_relu_grad_input_kernel<<<grid, kThreads, 0, st>>>(x, dy, mean, rstd, weight, bias, coef, dx, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One eval-mode BatchNorm + ReLU over [R, C] (C % 4 == 0; x and y 16-byte
+// aligned) from the running statistics: y = relu(w * (x - running_mean) *
+// invstd + b). `blocks` is kernels/bn_relu.py bn_relu_plan's; a launch
+// whose plan differs is refused.
+int plpe_bn_relu_eval(const float* x, float* y, const float* running_mean, const float* running_var,
+                      const float* weight, const float* bias, long long R, int C, int blocks, float eps,
+                      void* stream) {
+  Geometry g;
+  if (!make_geometry(R, C, &g) || g.blocks != blocks) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(g.blocks, g.chunks);
+  bn_relu_eval_kernel<<<grid, kThreads, 0, st>>>(x, y, running_mean, running_var, weight, bias, eps, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same over [G, K, C] with the max over each group's K rows: writes
+// y [G, C] only. `pieces` is kernels/bn_relu.py bn_relu_pool_plan's; a
+// launch whose plan differs is refused. Where a group is cut into more
+// than one piece, y is zeroed on the stream first and the pieces merge
+// with atomicMax.
+int plpe_bn_relu_eval_max(const float* x, float* y, const float* running_mean, const float* running_var,
+                          const float* weight, const float* bias, long long G, int K, int C, int pieces,
+                          float eps, void* stream) {
+  PoolGeometry g;
+  if (!make_pool_geometry(G, K, C, &g) || g.pieces != pieces) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (g.pieces > 1) {
+    const cudaError_t err = cudaMemsetAsync(y, 0, static_cast<size_t>(G) * C * sizeof(float), st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(static_cast<unsigned>(g.blocks), g.chunks);
+  bn_relu_eval_max_kernel<<<grid, kThreads, 0, st>>>(x, y, running_mean, running_var, weight, bias, eps, g);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -89,8 +89,7 @@ class VanillaHead(nn.Module):
         if self.training and hasattr(self, "dead_tnet"):
             with torch.no_grad():
                 self.dead_tnet(x)
-        x = self.mlp_post(x)
-        return _finish(self, self.head(x.amax(dim=-2)), mean)
+        return _finish(self, self.head(self.mlp_post.forward_max(x)), mean)
 
 
 class SSGHead(nn.Module):
@@ -190,7 +189,7 @@ class GenericPoseHead(nn.Module):
         x = self.mlp_pre(x)
         if hasattr(self, "tnet_feature"):
             x = apply_transform(x, self.tnet_feature(x))
-        out = self.head(self.mlp_post(x).amax(dim=-2))
+        out = self.head(self.mlp_post.forward_max(x))
         if self.mean_residual:
             return out + self.mean_mlp(mean)
         if self.classify:

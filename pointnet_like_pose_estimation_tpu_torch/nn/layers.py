@@ -23,7 +23,14 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from pointnet_like_pose_estimation_tpu_torch.kernels.bn_relu import bn_relu, plain_bn_relu
+from pointnet_like_pose_estimation_tpu_torch.kernels.bn_relu import (
+    INT32_ELEMENTS,
+    bn_relu,
+    bn_relu_eval,
+    bn_relu_eval_pool,
+    plain_bn_relu,
+    plain_bn_relu_eval,
+)
 from pointnet_like_pose_estimation_tpu_torch.nn.bn_context import bn_group
 
 # TrainConfig.dtype / PipelineConfig.dtype -> the Linear layers' compute dtype
@@ -150,16 +157,18 @@ class Dropout(nn.Module):
 
 def plain_reason(x: torch.Tensor, bn: nn.Module) -> str | None:
     """Why ``relu(bn(x))`` takes the plain path (``torch.relu(bn(x))``),
-    or None where it takes the fused train-mode kernels
-    (``kernels/bn_relu.py``): ``"eval"`` (the running statistics: all of
-    serving), ``"module"`` (a BatchNorm of another forward, such as the
+    or None where it takes the fused kernels (``kernels/bn_relu.py``: in
+    train mode the train-mode Function, in eval mode the eval passes):
+    ``"module"`` (a BatchNorm of another forward, such as the
     tensor-parallel shard), ``"bn_sync"`` (statistics over a process
     group), ``"dtype"`` (anything but float32: float64, and the bfloat16
     compute path), ``"width"`` (channels no multiple of 4, which the
-    kernels' 16-byte loads do not take) or ``"device"`` (not a CUDA
-    tensor: the CPU, where the port is held against the JAX package)."""
-    if not bn.training:
-        return "eval"
+    kernels' 16-byte loads do not take), ``"eval"`` (an eval-mode pair
+    whose output needs a gradient: the eval passes have no backward),
+    ``"size"`` (an eval-mode pair of ``INT32_ELEMENTS`` or more, where
+    PyTorch's eval BatchNorm rounds otherwise than the eval passes) or
+    ``"device"`` (not a CUDA tensor: the CPU, where the port is held
+    against the JAX package)."""
     if type(bn) is not BatchNormF32:
         return "module"
     if bn_group() is not None:
@@ -168,6 +177,11 @@ def plain_reason(x: torch.Tensor, bn: nn.Module) -> str | None:
         return "dtype"
     if x.shape[-1] % 4:
         return "width"
+    if not bn.training:
+        if torch.is_grad_enabled() and (x.requires_grad or bn.weight.requires_grad or bn.bias.requires_grad):
+            return "eval"
+        if x.numel() >= INT32_ELEMENTS:
+            return "size"
     if not x.is_cuda:
         return "device"
     return None
@@ -175,9 +189,11 @@ def plain_reason(x: torch.Tensor, bn: nn.Module) -> str | None:
 
 class PointwiseMLP(nn.Module):
     """Stack of Linear -> BatchNorm -> ReLU over the trailing channel axis.
-    A BatchNorm + ReLU pair runs as one fused Function where
-    ``plain_reason`` gives None (train mode on the card), else as
-    ``torch.relu(bn(x))``."""
+    A BatchNorm + ReLU pair runs fused where ``plain_reason`` gives None (a
+    float32 pair on the card: in train mode the train-mode Function, in
+    eval mode one pass), else as ``torch.relu(bn(x))``. ``forward_max``
+    adds the max over the second-last axis, which an eval-mode last pair
+    takes in its own pass."""
 
     def __init__(self, in_features: int, features: Sequence[int], final_activation: bool = True):
         super().__init__()
@@ -190,12 +206,27 @@ class PointwiseMLP(nn.Module):
             in_features = width
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._layers(x, pool=False)
+
+    def forward_max(self, x: torch.Tensor) -> torch.Tensor:
+        """``self(x).amax(dim=-2)``, the max over each group of ``[..., K,
+        C]``: the same values, bit for bit."""
+        return self._layers(x, pool=True)
+
+    def _layers(self, x: torch.Tensor, pool: bool) -> torch.Tensor:
         for i in range(self.n):
             x = getattr(self, f"dense_{i}")(x)
             if i < self.n - 1 or self.final_activation:
                 bn = getattr(self, f"bn_{i}")
-                x = plain_bn_relu(x, bn) if plain_reason(x, bn) else bn_relu(x, bn)
-        return x
+                if plain_reason(x, bn):
+                    x = plain_bn_relu(x, bn) if bn.training else plain_bn_relu_eval(x, bn)
+                elif bn.training:
+                    x = bn_relu(x, bn)
+                elif pool and i == self.n - 1:
+                    return bn_relu_eval_pool(x, bn)
+                else:
+                    x = bn_relu_eval(x, bn)
+        return x.amax(dim=-2) if pool else x
 
 
 class DenseHead(nn.Module):

@@ -46,7 +46,7 @@ class SetAbstraction(nn.Module):
             centroids, grouped = sample_and_group(
                 points, features, self.num_centroids, self.num_neighbors, self.radius
             )
-        return centroids, self.mlp(grouped).amax(dim=-2)
+        return centroids, self.mlp.forward_max(grouped)
 
 
 class SetAbstractionMSG(nn.Module):
@@ -83,7 +83,7 @@ class SetAbstractionMSG(nn.Module):
                 ctx.mesh, axis=ctx.axis, batch_axis=ctx.batch_axis)
         else:
             centroids, grouped_list = self._group(points, features)
-        outs = [getattr(self, f"mlp_{i}")(grouped).amax(dim=-2) for i, grouped in enumerate(grouped_list)]
+        outs = [getattr(self, f"mlp_{i}").forward_max(grouped) for i, grouped in enumerate(grouped_list)]
         return centroids, torch.cat(outs, dim=-1)
 
     def _group(self, points: torch.Tensor, features: torch.Tensor | None):

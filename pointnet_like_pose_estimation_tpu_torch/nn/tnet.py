@@ -41,7 +41,7 @@ class TNet(nn.Module):
             self.out.bias.copy_(torch.eye(self.k).reshape(-1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.fc(self.mlp(x).amax(dim=-2))
+        h = self.fc(self.mlp.forward_max(x))
         return self.out(h).reshape(x.shape[0], self.k, self.k)
 
 

@@ -33,8 +33,10 @@ the keys, the eviction and the counters work as on the card.
 
 The kernel wrappers count launches where they launch (``fps.launches``,
 ``ball_query_multi.launches``, ``fused_sa_infer.launches``,
-``bn_relu.launches``; ``plain_bn_relu.launches`` the train-mode BatchNorm +
-ReLU pairs that took the plain path). A capture
+``bn_relu.launches``, ``bn_relu_eval.launches``,
+``bn_relu_eval_pool.launches``; ``plain_bn_relu.launches`` and
+``plain_bn_relu_eval.launches`` the train- and eval-mode BatchNorm + ReLU
+pairs that took the plain path). A capture
 launches nothing, so the cache takes back what the capture added, records
 it with the graph (``launches(key)``) and adds it again at every replay:
 the counts stay launches that ran on the card. The warm-up's launches ran,
@@ -58,16 +60,24 @@ from typing import Any, Callable
 import torch
 
 from pointnet_like_pose_estimation_tpu_torch.kernels.ball_group import ball_query_multi
-from pointnet_like_pose_estimation_tpu_torch.kernels.bn_relu import bn_relu, plain_bn_relu
+from pointnet_like_pose_estimation_tpu_torch.kernels.bn_relu import (
+    bn_relu,
+    bn_relu_eval,
+    bn_relu_eval_pool,
+    plain_bn_relu,
+    plain_bn_relu_eval,
+)
 from pointnet_like_pose_estimation_tpu_torch.kernels.fps import fps
 from pointnet_like_pose_estimation_tpu_torch.kernels.fused_sa import fused_sa_infer
 from pointnet_like_pose_estimation_tpu_torch.ops.grouping import count_grouped
 from pointnet_like_pose_estimation_tpu_torch.utils.profiling import span
 
 # the launch counters of the kernel wrappers, by kernel name; bn_relu_plain
-# counts the train-mode BatchNorm + ReLU pairs that bn_relu did not take
+# and bn_relu_eval_plain count the train- and eval-mode BatchNorm + ReLU
+# pairs that the fused kernels did not take
 COUNTED = {"fps": fps, "ball_query": ball_query_multi, "fused_sa": fused_sa_infer, "bn_relu": bn_relu,
-           "bn_relu_plain": plain_bn_relu}
+           "bn_relu_plain": plain_bn_relu, "bn_relu_eval": bn_relu_eval, "bn_relu_eval_pool": bn_relu_eval_pool,
+           "bn_relu_eval_plain": plain_bn_relu_eval}
 # the programs a cache keeps before it evicts the least recently used
 MAX_PROGRAMS = 32
 

@@ -16,7 +16,14 @@ from pointnet_like_pose_estimation_tpu_torch.kernels.ball_group import (
     ball_query_multi,
     ball_query_reference,
 )
-from pointnet_like_pose_estimation_tpu_torch.kernels.bn_relu import bn_relu, plain_bn_relu
+from pointnet_like_pose_estimation_tpu_torch.kernels.bn_relu import (
+    bn_relu,
+    bn_relu_eval,
+    bn_relu_eval_pool,
+    bn_relu_pool_plan,
+    plain_bn_relu,
+    plain_bn_relu_eval,
+)
 from pointnet_like_pose_estimation_tpu_torch.kernels.fps import (
     CLUSTER_BLOCKS,
     CLUSTER_PATH,
@@ -374,6 +381,112 @@ def test_fused_bn_relu_takes_every_pair_of_the_ssg_train_step(card):
     assert programs.launches(programs.keys()[0])["bn_relu"] == 9
 
 
+def _eval_pair(card, R, C, seed):
+    """Seeded rows as a Linear layer gives them and an eval-mode
+    BatchNormF32 with nontrivial parameters and running statistics, on the
+    card."""
+    x, _, bn = _bn_relu_pair(card, R, C, seed)
+    return x, bn.eval()
+
+
+# [R, C] of the inner eval pairs of both serving cells' requests at 32
+# clusters (SSG SA1, SA2, global; the PointNet heads; MSG SA1 at K = 16, 32,
+# 128, SA2 at K = 32, 64, 128, the two-level heads' global layer), then
+# rows off a block and columns off a row
+EVAL_SHAPES = [(16384 * 32, 64), (4096 * 64, 128), (32 * 128, 256), (32 * 128, 512), (32 * 1024, 64),
+               (32 * 1024, 128), (16384 * 16, 32), (16384 * 128, 64), (16384 * 128, 96), (4096 * 32, 64),
+               (4096 * 128, 128), (32 * 512, 512), (100_003, 64), (777, 12), (5, 2_048), (1, 4)]
+# [G, K, C] of their last pairs, each followed by a max over K, then groups
+# off a lane, a block and a piece (the K = 4 request bucket's heads too)
+POOL_SHAPES = [(16384, 32, 128), (4096, 64, 256), (32, 128, 1024), (32, 1024, 1024), (16384, 16, 64),
+               (16384, 128, 128), (4096, 32, 128), (4096, 128, 256), (32, 512, 1024), (4, 1024, 1024), (5, 3, 12),
+               (33, 1000, 1024), (7, 9, 2048), (1, 1, 4)]
+
+
+@pytest.mark.parametrize("R,C", EVAL_SHAPES)
+def test_bn_relu_eval_kernel_equals_the_plain_pair(card, R, C):
+    """The eval pass against ``torch.relu(BatchNormF32(x))`` in eval mode on
+    the card: equal bit for bit (PyTorch's invstd and rounding), a second
+    call the same bits, one launch a call, the BatchNorm's state untouched."""
+    x, bn = _eval_pair(card, R, C, seed=R + C)
+    state = {k: v.clone() for k, v in bn.state_dict().items()}
+    with torch.inference_mode():
+        e0 = bn_relu_eval.launches
+        got, again = bn_relu_eval(x, bn), bn_relu_eval(x, bn)
+        want = torch.relu(bn(x))
+    torch.cuda.synchronize()
+    assert bn_relu_eval.launches - e0 == 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, want), f"max gap {float((got - want).abs().max())}, {int((got != want).sum())} differ"
+    for k, v in bn.state_dict().items():
+        assert torch.equal(v, state[k]), k
+
+
+@pytest.mark.parametrize("G,K,C", POOL_SHAPES)
+def test_bn_relu_eval_pooled_kernel_equals_the_plain_pair_and_amax(card, G, K, C):
+    """The pooled eval pass against ``torch.relu(BatchNormF32(x))
+    .amax(dim=-2)`` on the card: equal bit for bit whether a group is one
+    piece or several merged by atomicMax, a second call the same bits, one
+    launch a call."""
+    x, bn = _eval_pair(card, G * K, C, seed=G + K + C)
+    x = x.reshape(G, K, C)
+    with torch.inference_mode():
+        p0 = bn_relu_eval_pool.launches
+        got, again = bn_relu_eval_pool(x, bn), bn_relu_eval_pool(x, bn)
+        want = torch.relu(bn(x)).amax(dim=-2)
+    torch.cuda.synchronize()
+    assert bn_relu_eval_pool.launches - p0 == 2 and got.shape == (G, C)
+    assert torch.equal(got, again)
+    assert torch.equal(got, want), (f"plan {bn_relu_pool_plan(G, K, C)}: max gap "
+                                    f"{float((got - want).abs().max())}, {int((got != want).sum())} differ")
+
+
+@pytest.mark.parametrize("G,K", [(64, 40), (2, 1280), (16384, 16)])
+def test_bn_relu_eval_kernels_carry_nan_as_the_plain_pair(card, G, K):
+    """NaNs in the input: the eval pass puts them where the plain pair does
+    and equals it elsewhere; the pooled pass gives NaN in exactly the
+    groups and channels where ``amax`` does (one piece a group, or several
+    merged by atomicMax) and equals it elsewhere."""
+    C = 64
+    x, bn = _eval_pair(card, G * K, C, seed=G)
+    x[5, 3] = x[G * K // 2, 10] = x[G * K - 40:, 60] = float("nan")
+    with torch.inference_mode():
+        got, want = bn_relu_eval(x, bn), torch.relu(bn(x))
+        pooled, want_pooled = bn_relu_eval_pool(x.reshape(G, K, C), bn), want.reshape(G, K, C).amax(dim=-2)
+    torch.cuda.synchronize()
+    assert torch.equal(got.isnan(), want.isnan()) and torch.equal(got.nan_to_num(), want.nan_to_num())
+    assert int(want_pooled.isnan().sum()) >= 3
+    assert torch.equal(pooled.isnan(), want_pooled.isnan())
+    assert torch.equal(pooled.nan_to_num(), want_pooled.nan_to_num())
+
+
+def test_request_programs_take_the_eval_passes(card):
+    """One replay of each serving request program (the default SSG models,
+    the MSG ones) runs every eval-mode BatchNorm + ReLU pair of its shared
+    MLPs through the eval passes and none plain: SSG 22 passes and 7 pooled
+    (3 of the classifier's set abstractions, one a PointNet head), MSG 48
+    and 23 (the classifier's and the rotation head's seven MLPs, the sign
+    and translation heads' four, the width head's one)."""
+    from pointnet_like_pose_estimation_tpu_torch.pipeline import GraspPipeline, PipelineConfig
+
+    msg = PipelineConfig(classifier="pointnet2_cls_msg", rotation="rotation_msg", sign="sign_msg",
+                         translation="translation_msg")
+    rng = np.random.default_rng(8)
+    clusters = (rng.uniform(-0.5, 0.5, (4, 1, 3)) + 0.05 * rng.standard_normal((4, 1300, 3))).astype(np.float32)
+    for cfg, passes, pooled in ((PipelineConfig(), 22, 7), (msg, 48, 23)):
+        pipe = GraspPipeline.from_random(cfg, seed=4, device="cuda")
+        key, fn, inputs, _ = pipe._request_call(clusters)
+        pipe.programs(key, fn, inputs)                       # warm-up and capture
+        counts = (bn_relu_eval.launches, bn_relu_eval_pool.launches, plain_bn_relu_eval.launches)
+        pipe.programs(key, fn, inputs)                       # one replay
+        torch.cuda.synchronize()
+        after = (bn_relu_eval.launches, bn_relu_eval_pool.launches, plain_bn_relu_eval.launches)
+        assert tuple(b - a for a, b in zip(counts, after)) == (passes, pooled, 0)
+        recorded = pipe.programs.launches(key)
+        assert (recorded["bn_relu_eval"], recorded["bn_relu_eval_pool"], recorded["bn_relu_eval_plain"]) == (
+            passes, pooled, 0)
+
+
 @pytest.mark.parametrize("name", ["pointnet2_cls_ssg", "pointnet2_cls_msg"])
 def test_fast_infer_on_card_matches_cpu(card, name):
     from pointnet_like_pose_estimation_tpu_torch.models import build_model
@@ -631,7 +744,8 @@ def test_request_replay_equals_eager_and_takes_new_inputs(card):
             assert not torch.equal(first["log_probs"], replay["log_probs"])
     assert pipe.programs.captures == 2 and pipe.programs.replays == 3
     assert pipe.programs.launches(("request", 4, 1536)) == {"fps": 3, "ball_query": 2, "fused_sa": 0,
-                                                           "bn_relu": 0, "bn_relu_plain": 0}
+                                                           "bn_relu": 0, "bn_relu_plain": 0, "bn_relu_eval": 22,
+                                                           "bn_relu_eval_pool": 7, "bn_relu_eval_plain": 0}
 
 
 def test_msg_request_replay_equals_eager_and_counts_its_grouped_bytes(card):
@@ -657,7 +771,8 @@ def test_msg_request_replay_equals_eager_and_counts_its_grouped_bytes(card):
     assert pipe.programs.grouped_bytes(key) == 2_841_591_808 // 8
     assert count_grouped.bytes - g0 == 2 * pipe.programs.grouped_bytes(key)
     assert pipe.programs.launches(key) == {"fps": 7, "ball_query": 6, "fused_sa": 0, "bn_relu": 0,
-                                           "bn_relu_plain": 0}
+                                           "bn_relu_plain": 0, "bn_relu_eval": 48, "bn_relu_eval_pool": 23,
+                                           "bn_relu_eval_plain": 0}
     with torch.inference_mode():
         eager = fn(*(x.to(card) for x in inputs))
     assert _gap(replay, eager) <= 1e-5
@@ -710,7 +825,8 @@ def test_executor_replay_equals_eager(card, name):
     assert not torch.equal(outs[0], outs[1])
     assert (fwd.programs.captures, fwd.programs.replays) == (1, 2)
     assert fwd.programs.launches(("executor", 4, 1024, 3)) == {"fps": 2, "ball_query": 0, "fused_sa": 2,
-                                                               "bn_relu": 0, "bn_relu_plain": 0}
+                                                               "bn_relu": 0, "bn_relu_plain": 0, "bn_relu_eval": 0,
+                                                               "bn_relu_eval_pool": 0, "bn_relu_eval_plain": 0}
 
 
 def test_captures_equal_the_distinct_buckets(card):
