@@ -1011,14 +1011,13 @@ def timed(fn, reps: int) -> dict:
 def uncounted():
     """Kernel launches inside are no launches of the main path (an eager
     run held against a replay, or timed beside it): the counts are put back."""
-    from pointnet_like_pose_estimation_tpu_torch.utils.programs import COUNTED
+    from pointnet_like_pose_estimation_tpu_torch.utils import counters
 
-    saved = {name: wrapper.launches for name, wrapper in COUNTED.items()}
+    saved = counters.read()
     try:
         yield
     finally:
-        for name, wrapper in COUNTED.items():
-            wrapper.launches = saved[name]
+        counters.take_back(saved)
 
 
 def runs_of(cache, fn):
@@ -1101,6 +1100,9 @@ def programs_line(what: str, cache) -> dict:
     return row
 
 
+# the bytes of one cluster's grouped tensors in the SSG request: the
+# classifier's three levels (the default heads group nothing)
+SSG_GROUPED_BYTES = 4 * (512 * 32 * 3 + 128 * 64 * (3 + 128) + 128 * (3 + 256))
 # the kernels of the port by the name the profiler gives them
 PROFILED_KERNELS = {"fps": ("fps_register_kernel", "fps_register_spliced_kernel", "fps_dist_kernel",
                             "fps_cluster_kernel"),
@@ -1263,10 +1265,9 @@ def serving_phase(pipe, cpu, kernels: list[dict]) -> dict:
         out, runs = runs_of(pipe.programs, lambda: pipe.infer_clusters(clusters))
         key = pipe._request_call(clusters)[0]
         want_fps = 3 if clusters.shape[1] > 1024 else 2
-        check(pipe.programs.launches(key) == {"fps": want_fps, "ball_query": 2, "fused_sa": 0, "bn_relu": 0,
-                                              "bn_relu_plain": 0, "bn_relu_eval": 22, "bn_relu_eval_pool": 7,
-                                              "bn_relu_eval_plain": 0},
-              f"{name}: the program of {key} records {pipe.programs.launches(key)}")
+        check(pipe.programs.counts(key) == {"fps": want_fps, "ball_query": 2, "bn_relu_eval": 22,
+                                            "bn_relu_eval_pool": 7, "grouped_bytes": key[1] * SSG_GROUPED_BYTES},
+              f"{name}: the program of {key} records {pipe.programs.counts(key)}")
         got_counts = (fps.launches - f0, ball_query_multi.launches - b0)
         check(got_counts == (want_fps * runs, 2 * runs),
               f"{name}: launches fps/ball_query {got_counts}, want ({want_fps}, 2) a run, {runs} runs")
@@ -1282,10 +1283,10 @@ def serving_phase(pipe, cpu, kernels: list[dict]) -> dict:
     _, traced_clusters, _, traced_key, _ = outputs[1]
     with uncounted():
         traced = profiled_launches(lambda: pipe.infer_clusters(traced_clusters))
-    recorded = pipe.programs.launches(traced_key)
-    check(recorded == {"fps": 3, "ball_query": 2, "fused_sa": 0, "bn_relu": 0, "bn_relu_plain": 0,
-                       "bn_relu_eval": 22, "bn_relu_eval_pool": 7, "bn_relu_eval_plain": 0}
-          and all(traced[k] == recorded[k] for k in traced),
+    recorded = pipe.programs.counts(traced_key)
+    check(recorded == {"fps": 3, "ball_query": 2, "bn_relu_eval": 22, "bn_relu_eval_pool": 7,
+                       "grouped_bytes": traced_key[1] * SSG_GROUPED_BYTES}
+          and all(traced[k] == recorded.get(k, 0) for k in traced),
           f"the profiler saw {traced} in a replay of {traced_key}, its capture recorded {recorded}")
     log(f"  one replay of {traced_key} under torch.profiler: {json.dumps(traced)}, as its capture recorded")
 
@@ -1845,10 +1846,10 @@ def profiled_train_replay(device, data) -> dict:
         step(state.model, state.optimizer, batch, state.generator)         # runs the step, then captures it
         seen = profiled_launches(lambda: step(state.model, state.optimizer, batch, state.generator))
     programs = step.cache(device)
-    recorded = programs.launches(programs.keys()[0])
+    recorded = programs.counts(programs.keys()[0])
     check(programs.replays == 1 and seen["fps"] == recorded["fps"] == 2
           and seen["ball_query"] == recorded["ball_query"] == 2
-          and seen["bn_relu"] == recorded["bn_relu"] == 9 and recorded["bn_relu_plain"] == 0,
+          and seen["bn_relu"] == recorded["bn_relu"] == 9 and recorded.get("bn_relu_plain", 0) == 0,
           f"a train step's replay under the profiler ran {seen}, its capture recorded {recorded}")
     log(f"  a train step's replay under the profiler ran {seen} on the card, as its capture recorded")
     return {"profiled": seen, "recorded": recorded}
@@ -2574,8 +2575,8 @@ def data_phase(device, pipe, kernels: list[dict]) -> dict:
         gap = output_gap(got, eager_scene(full, cleaned, labels), "near frame, radius clean")
     key = full._scene_call(cleaned, labels)[0]
     want_fps = 4 if key[-1] == "fps" else 3          # truncation, resampling (fps branch), SA1, SA2
-    check(full.programs.launches(key)["fps"] == want_fps and fps_path(key[2], 3, key[1]) == "cluster",
-          f"near frame, radius clean: the scene program {key} records {full.programs.launches(key)}, "
+    check(full.programs.counts(key)["fps"] == want_fps and fps_path(key[2], 3, key[1]) == "cluster",
+          f"near frame, radius clean: the scene program {key} records {full.programs.counts(key)}, "
           f"its truncation FPS the {fps_path(key[2], 3, key[1])} path")
     split = np.median(np.array([stage_ms(full, frame) for _ in range(3)]), axis=0)
     report["near_frame"] = {

@@ -6,6 +6,10 @@ hash covering the source, the shared ``csrc/*.cuh`` headers and the flags,
 so an edited source is never served from a stale library. Nothing is built at import: the first launch
 of a kernel builds its library, and ``build()`` builds several at once,
 one nvcc process each, all started together. A failed build raises.
+
+Every C entry is declared once, in ``ENTRIES``; its types are set when its
+library is loaded, and the wrappers launch it through ``call``, which passes
+the caller's current CUDA stream last and raises on a CUDA error.
 """
 
 from __future__ import annotations
@@ -19,9 +23,26 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNELS = ("fps", "ball_group", "fused_sa", "bn_relu")
+
+# every C entry of the kernel libraries: its library and the types of its
+# arguments but the last, the CUDA stream, which every entry takes. Each
+# returns the cudaError_t of its launch (0 on success).
+_PTR, _INT, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+ENTRIES = {
+    "plpe_fps": ("fps", [_PTR] * 4 + [_INT] * 7),
+    "plpe_ball_query": ("ball_group", [_PTR] * 3 + [_INT] * 4 + [_PTR] * 2 + [_INT] * 6),
+    "plpe_fused_sa": ("fused_sa", [_PTR] * 4 + [_INT] * 5 + [_PTR] * 5 + [_INT] * 3),
+    "plpe_fused_sa_mma_selftest": ("fused_sa", [_PTR] * 3),
+    "plpe_bn_relu_forward": ("bn_relu", [_PTR] * 10 + [_I64, _INT, _INT] + [_F32] * 3),
+    "plpe_bn_relu_backward": ("bn_relu", [_PTR] * 11 + [_I64, _INT, _INT]),
+    "plpe_bn_relu_eval": ("bn_relu", [_PTR] * 6 + [_I64, _INT, _INT, _F32]),
+    "plpe_bn_relu_eval_max": ("bn_relu", [_PTR] * 6 + [_I64] + [_INT] * 3 + [_F32]),
+}
+KERNELS = tuple(dict.fromkeys(lib for lib, _ in ENTRIES.values()))
 
 # -fmad=false: a contracted multiply-add rounds once where the PyTorch
 # version rounds twice, which moves points across the ball radius and
@@ -93,13 +114,29 @@ def build(names=KERNELS) -> dict[str, Built]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of one kernel, built on first use."""
+    """The loaded library of one kernel, built on first use, its entries'
+    types set."""
     if name not in _LIBS:
         lib = ctypes.CDLL(str(build((name,))[name].path))
         lib.plpe_error_string.argtypes = [ctypes.c_int]
         lib.plpe_error_string.restype = ctypes.c_char_p
+        for entry, (owner, argtypes) in ENTRIES.items():
+            if owner == name:
+                getattr(lib, entry).argtypes = [*argtypes, ctypes.c_void_p]
+                getattr(lib, entry).restype = ctypes.c_int
         _LIBS[name] = lib
     return _LIBS[name]
+
+
+def call(entry: str, *args) -> None:
+    """Launch the C entry ``entry`` (of ``ENTRIES``) on ``args``, a tensor
+    passed as its address, then the current CUDA stream of the first
+    tensor's device; raises if it returns a CUDA error."""
+    lib = library(ENTRIES[entry][0])
+    device = next(a.device for a in args if isinstance(a, torch.Tensor))
+    code = getattr(lib, entry)(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args),
+                               torch.cuda.current_stream(device).cuda_stream)
+    check(lib, code, entry)
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -17,6 +17,7 @@ import torch
 
 from pointnet_like_pose_estimation_tpu_torch.kernels import _build
 from pointnet_like_pose_estimation_tpu_torch.ops.geometry import square_distance
+from pointnet_like_pose_estimation_tpu_torch.utils.counters import counted
 
 MAX_SCALES = 8
 MAX_CHANNELS = 32
@@ -105,6 +106,7 @@ def ball_query_reference(
     return torch.cat(out, dim=-1).to(torch.int32)
 
 
+@counted("ball_query")
 def ball_query_multi(
     points: torch.Tensor, centroids: torch.Tensor, radii, ks
 ) -> torch.Tensor:
@@ -137,23 +139,9 @@ def ball_query_multi(
     out = torch.empty((B, S, sum(ks)), dtype=torch.int32, device=points.device)
     r2 = (ctypes.c_float * len(ks))(*[_radius_sq(r) for r in radii])
     kk = (ctypes.c_int * len(ks))(*ks)
-    lib = _build.library("ball_group")
-    lib.plpe_ball_query.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-        + [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    )
-    lib.plpe_ball_query.restype = ctypes.c_int
-    code = lib.plpe_ball_query(
-        points.data_ptr(), centroids.data_ptr(), out.data_ptr(), B, N, S, P,
-        ctypes.addressof(r2), ctypes.addressof(kk), len(ks), *plan,
-        torch.cuda.current_stream(points.device).cuda_stream,
-    )
-    _build.check(lib, code, "ball_query")
+    _build.call("plpe_ball_query", points, centroids, out, B, N, S, P, r2, kk, len(ks), *plan)
     ball_query_multi.launches += 1
     return out
-
-
-ball_query_multi.launches = 0
 
 
 def ball_query(

@@ -21,22 +21,21 @@ equal the plain pair bit for bit (``csrc/bn_relu.cu``, "Eval mode"). They
 have no backward: ``plain_reason`` sends an eval pair whose output needs a
 gradient to the plain path.
 
-Every path counts: ``bn_relu.launches`` the fused train forwards on the
-card, ``bn_relu_eval.launches`` and ``bn_relu_eval_pool.launches`` the
-eval passes there, ``plain_bn_relu.launches`` and
-``plain_bn_relu_eval.launches`` the train- and eval-mode pairs that took
-the plain path (``utils/programs.py`` ``COUNTED`` counts all five at every
-replay of a graph).
+Every path counts (``utils/counters.py``): ``bn_relu.launches`` the fused
+train forwards on the card, ``bn_relu_eval.launches`` and
+``bn_relu_eval_pool.launches`` the eval passes there,
+``plain_bn_relu.launches`` and ``plain_bn_relu_eval.launches`` the train-
+and eval-mode pairs that took the plain path.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
 
 from pointnet_like_pose_estimation_tpu_torch.kernels import _build
+from pointnet_like_pose_estimation_tpu_torch.utils.counters import counted
 
 # what csrc/bn_relu.cu takes (kThreads, kMaxRowBlocks: four blocks of 256
 # threads on each of the card's 132 SMs)
@@ -177,19 +176,8 @@ def _forward_kernel(x, mean, var, weight, bias, running_mean, running_var, momen
     plan = bn_relu_plan(R, C)
     y = torch.empty_like(x)
     rstd, scale = (torch.empty(C, dtype=torch.float32, device=x.device) for _ in range(2))
-    lib = _build.library("bn_relu")
-    lib.plpe_bn_relu_forward.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
-        + [ctypes.c_float] * 3 + [ctypes.c_void_p]
-    )
-    lib.plpe_bn_relu_forward.restype = ctypes.c_int
-    code = lib.plpe_bn_relu_forward(
-        x.data_ptr(), y.data_ptr(), mean.data_ptr(), var.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-        running_mean.data_ptr(), running_var.data_ptr(), rstd.data_ptr(), scale.data_ptr(),
-        R, C, plan.blocks, 1.0 - momentum, momentum, eps,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(lib, code, "bn_relu forward")
+    _build.call("plpe_bn_relu_forward", x, y, mean, var, weight, bias, running_mean, running_var, rstd, scale,
+                R, C, plan.blocks, 1.0 - momentum, momentum, eps)
     return y, rstd
 
 
@@ -203,17 +191,8 @@ def _backward_kernel(x, dy, mean, rstd, weight, bias):
     grad_w, grad_b = (torch.empty(C, dtype=torch.float32, device=x.device) for _ in range(2))
     coef = torch.empty((2, C), dtype=torch.float32, device=x.device)
     part = torch.empty((2, plan.blocks, C), dtype=torch.float32, device=x.device)
-    lib = _build.library("bn_relu")
-    lib.plpe_bn_relu_backward.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    )
-    lib.plpe_bn_relu_backward.restype = ctypes.c_int
-    code = lib.plpe_bn_relu_backward(
-        x.data_ptr(), dy.data_ptr(), mean.data_ptr(), rstd.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-        dx.data_ptr(), grad_w.data_ptr(), grad_b.data_ptr(), coef.data_ptr(), part.data_ptr(),
-        R, C, plan.blocks, torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(lib, code, "bn_relu backward")
+    _build.call("plpe_bn_relu_backward", x, dy, mean, rstd, weight, bias, dx, grad_w, grad_b, coef, part,
+                R, C, plan.blocks)
     return dx, grad_w, grad_b
 
 
@@ -221,17 +200,8 @@ def _eval_kernel(x, running_mean, running_var, weight, bias, eps: float) -> torc
     _validate(x, running_mean, running_var, weight, bias)
     R, C = x.shape
     y = torch.empty_like(x)
-    lib = _build.library("bn_relu")
-    lib.plpe_bn_relu_eval.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-    )
-    lib.plpe_bn_relu_eval.restype = ctypes.c_int
-    code = lib.plpe_bn_relu_eval(
-        x.data_ptr(), y.data_ptr(), running_mean.data_ptr(), running_var.data_ptr(), weight.data_ptr(),
-        bias.data_ptr(), R, C, bn_relu_plan(R, C).blocks, eps,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(lib, code, "bn_relu eval")
+    _build.call("plpe_bn_relu_eval", x, y, running_mean, running_var, weight, bias, R, C,
+                bn_relu_plan(R, C).blocks, eps)
     return y
 
 
@@ -239,17 +209,8 @@ def _eval_max_kernel(x, running_mean, running_var, weight, bias, eps: float) -> 
     G, K, C = x.shape
     _validate(x.reshape(G * K, C), running_mean, running_var, weight, bias)
     y = torch.empty((G, C), dtype=x.dtype, device=x.device)
-    lib = _build.library("bn_relu")
-    lib.plpe_bn_relu_eval_max.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
-    )
-    lib.plpe_bn_relu_eval_max.restype = ctypes.c_int
-    code = lib.plpe_bn_relu_eval_max(
-        x.data_ptr(), y.data_ptr(), running_mean.data_ptr(), running_var.data_ptr(), weight.data_ptr(),
-        bias.data_ptr(), G, K, C, bn_relu_pool_plan(G, K, C).pieces, eps,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(lib, code, "bn_relu eval pooled")
+    _build.call("plpe_bn_relu_eval_max", x, y, running_mean, running_var, weight, bias, G, K, C,
+                bn_relu_pool_plan(G, K, C).pieces, eps)
     return y
 
 
@@ -286,6 +247,7 @@ class BatchNormReLU(torch.autograd.Function):
         return dx, grad_w, grad_b, None, None, None, None
 
 
+@counted("bn_relu")
 def bn_relu(x: torch.Tensor, bn) -> torch.Tensor:
     """``torch.relu(bn(x))`` for a train-mode ``BatchNormF32`` ``bn`` over
     the trailing axis of ``x``, as one Function: the batch statistics over
@@ -305,6 +267,7 @@ def _eval_args(bn):
     return bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps
 
 
+@counted("bn_relu_eval")
 def bn_relu_eval(x: torch.Tensor, bn) -> torch.Tensor:
     """``torch.relu(bn(x))`` for an eval-mode ``BatchNormF32`` ``bn`` over
     the trailing axis of float32 ``x``, in one pass: one read of ``x``, one
@@ -319,6 +282,7 @@ def bn_relu_eval(x: torch.Tensor, bn) -> torch.Tensor:
     return y.reshape(shape)
 
 
+@counted("bn_relu_eval_pool")
 def bn_relu_eval_pool(x: torch.Tensor, bn) -> torch.Tensor:
     """``torch.relu(bn(x)).amax(dim=-2)`` for an eval-mode
     ``BatchNormF32`` ``bn``, in one pass: one read of ``x [..., K, C]``, one
@@ -333,6 +297,7 @@ def bn_relu_eval_pool(x: torch.Tensor, bn) -> torch.Tensor:
     return y.reshape(*shape[:-2], shape[-1])
 
 
+@counted("bn_relu_plain")
 def plain_bn_relu(x: torch.Tensor, bn) -> torch.Tensor:
     """``torch.relu(bn(x))``, the pair as PyTorch runs it, for a train-mode
     pair that ``bn_relu`` did not take; counts the calls."""
@@ -340,14 +305,8 @@ def plain_bn_relu(x: torch.Tensor, bn) -> torch.Tensor:
     return torch.relu(bn(x))
 
 
+@counted("bn_relu_eval_plain")
 def plain_bn_relu_eval(x: torch.Tensor, bn) -> torch.Tensor:
     """The same for an eval-mode pair that the eval passes did not take."""
     plain_bn_relu_eval.launches += 1
     return torch.relu(bn(x))
-
-
-bn_relu.launches = 0
-bn_relu_eval.launches = 0
-bn_relu_eval_pool.launches = 0
-plain_bn_relu.launches = 0
-plain_bn_relu_eval.launches = 0

@@ -8,12 +8,12 @@ kernel's design and what bounds it are noted in the source.
 
 from __future__ import annotations
 
-import ctypes
 import numbers
 
 import torch
 
 from pointnet_like_pose_estimation_tpu_torch.kernels import _build
+from pointnet_like_pose_estimation_tpu_torch.utils.counters import counted
 
 # the shared path keeps one float of running distance per point in the
 # dynamic shared memory of one block (csrc/fps.cu kMaxSharedBytes); a block
@@ -116,6 +116,7 @@ def fps_reference(
     return out
 
 
+@counted("fps")
 def fps(points: torch.Tensor, num_samples: int, start_idx=0) -> torch.Tensor:
     """FPS over ``[B, N, C]`` float32 clouds; ``start_idx`` is an int or a
     ``[B]`` tensor of first centroids. Returns ``[B, S]`` int32 indices.
@@ -139,17 +140,7 @@ def fps(points: torch.Tensor, num_samples: int, start_idx=0) -> torch.Tensor:
     # the global path's running distances, allocated on the caller's stream
     scratch = (torch.empty((B, N), dtype=torch.float32, device=points.device)
                if points_per_thread == GLOBAL_PATH else None)
-    lib = _build.library("fps")
-    lib.plpe_fps.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    code = lib.plpe_fps(
-        points.data_ptr(), start.data_ptr(), out.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), B, N, C, num_samples,
-        threads, points_per_thread, CLUSTER_BLOCKS,
-        torch.cuda.current_stream(points.device).cuda_stream,
-    )
-    _build.check(lib, code, "fps")
+    _build.call("plpe_fps", points, start, out, scratch, B, N, C, num_samples, threads, points_per_thread,
+                CLUSTER_BLOCKS)
     fps.launches += 1
     return out
-
-
-fps.launches = 0

@@ -23,6 +23,7 @@ from pointnet_like_pose_estimation_tpu_torch.kernels.ball_group import (
     ball_query_reference,
 )
 from pointnet_like_pose_estimation_tpu_torch.ops.geometry import index_points
+from pointnet_like_pose_estimation_tpu_torch.utils.counters import counted
 
 # what csrc/fused_sa.cu takes (kernel constants mirrored below)
 MAX_SCALES = 8
@@ -107,13 +108,7 @@ def mma_tile_selftest(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                 or not t.is_contiguous()):
             raise ValueError(f"mma_tile_selftest: want a contiguous float32 CUDA tensor {shape}")
     out = torch.empty((16, 8), dtype=torch.float32, device=a.device)
-    lib = _build.library("fused_sa")
-    lib.plpe_fused_sa_mma_selftest.argtypes = [ctypes.c_void_p] * 4
-    lib.plpe_fused_sa_mma_selftest.restype = ctypes.c_int
-    code = lib.plpe_fused_sa_mma_selftest(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check(lib, code, "fused_sa mma selftest")
+    _build.call("plpe_fused_sa_mma_selftest", a, b, out)
     return out
 
 
@@ -170,6 +165,7 @@ def _validate(ptsfeat, centroids, weights, radii, ks, layer_widths, idx_out):
         raise ValueError("fused_sa: idx_out must be a contiguous int32 [B, S, sum(ks)] beside ptsfeat")
 
 
+@counted("fused_sa")
 def fused_sa_infer(
     ptsfeat: torch.Tensor,
     centroids: torch.Tensor,
@@ -219,22 +215,7 @@ def fused_sa_infer(
     flat = [c for ws in layer_widths for c in ws]
     widths = (ctypes.c_int * len(flat))(*flat)
     ptrs = (ctypes.c_void_p * len(weights))(*[w.data_ptr() for w in weights])
-    lib = _build.library("fused_sa")
-    lib.plpe_fused_sa.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    )
-    lib.plpe_fused_sa.restype = ctypes.c_int
-    code = lib.plpe_fused_sa(
-        ptsfeat.data_ptr(), centroids.data_ptr(), out.data_ptr(),
-        None if idx_out is None else idx_out.data_ptr(), B, N, S, P, n,
-        ctypes.addressof(r2), ctypes.addressof(kk), ctypes.addressof(counts),
-        ctypes.addressof(widths), ctypes.addressof(ptrs), rows, tile, nbytes,
-        torch.cuda.current_stream(ptsfeat.device).cuda_stream,
-    )
-    _build.check(lib, code, "fused_sa")
+    _build.call("plpe_fused_sa", ptsfeat, centroids, out, idx_out, B, N, S, P, n, r2, kk, counts, widths, ptrs,
+                rows, tile, nbytes)
     fused_sa_infer.launches += 1
     return out
-
-
-fused_sa_infer.launches = 0

@@ -4,9 +4,9 @@ package), channels-last: grouped tensors are ``[B, S, K, C]``.
 ``count_grouped`` adds the bytes of every grouped tensor that
 ``sample_and_group``, ``sample_and_group_all`` and
 ``SetAbstractionMSG._group`` build on one device (not the point-sharded
-groupings of ``parallel``) to ``count_grouped.bytes``; the
-request and step programs record a capture's bytes and add them at every
-replay, as they do the kernels' launches (``utils/programs.py``)."""
+groupings of ``parallel``) to ``count_grouped.bytes``, the counter
+``grouped_bytes`` (``utils/counters.py``), which the request and step
+programs keep as they keep the kernels' launches."""
 
 from __future__ import annotations
 
@@ -16,15 +16,14 @@ import torch
 from pointnet_like_pose_estimation_tpu_torch.kernels import ball_group
 from pointnet_like_pose_estimation_tpu_torch.ops.geometry import index_points
 from pointnet_like_pose_estimation_tpu_torch.ops.sampling import farthest_point_sample
+from pointnet_like_pose_estimation_tpu_torch.utils.counters import counted
 
 
+@counted("grouped_bytes", attr="bytes")
 def count_grouped(grouped: torch.Tensor) -> torch.Tensor:
     """``grouped``, its bytes added to ``count_grouped.bytes``."""
     count_grouped.bytes += grouped.numel() * grouped.element_size()
     return grouped
-
-
-count_grouped.bytes = 0
 
 
 def query_ball_point(

@@ -1,6 +1,7 @@
-"""Utilities of the port: timing and tracing (``profiling``), headless and
-interactive visualisation (``viz``, ``viz_interactive``), checkpoints and
-the device rule."""
+"""Utilities of the port: timing and tracing (``profiling``), the counters
+of what the kernels do (``counters``), headless and interactive
+visualisation (``viz``, ``viz_interactive``), checkpoints and the device
+rule."""
 
 from pointnet_like_pose_estimation_tpu_torch.utils.profiling import (
     SPANS,

@@ -31,18 +31,13 @@ A failed capture or replay raises: there is no eager fallback. On the CPU
 a program is ``fn`` itself, called on the static inputs at every replay;
 the keys, the eviction and the counters work as on the card.
 
-The kernel wrappers count launches where they launch (``fps.launches``,
-``ball_query_multi.launches``, ``fused_sa_infer.launches``,
-``bn_relu.launches``, ``bn_relu_eval.launches``,
-``bn_relu_eval_pool.launches``; ``plain_bn_relu.launches`` and
-``plain_bn_relu_eval.launches`` the train- and eval-mode BatchNorm + ReLU
-pairs that took the plain path). A capture
-launches nothing, so the cache takes back what the capture added, records
-it with the graph (``launches(key)``) and adds it again at every replay:
-the counts stay launches that ran on the card. The warm-up's launches ran,
-and stay counted. The bytes of the grouped tensors
-(``ops/grouping.py`` ``count_grouped``) are kept the same way
-(``grouped_bytes(key)``).
+The kernels and the groupings count what they do (``utils/counters.py``:
+kernel launches under the kernels' names, the grouped tensors' bytes under
+``grouped_bytes``). A capture runs nothing, so the cache takes back what
+every registered counter counted during it, records the counters that
+moved with the graph (``counts(key)``) and adds them again at every
+replay: the counts stay what ran on the card. The warm-up ran, and stays
+counted.
 
 ``ProgramCache.load`` and ``replay`` are a call in two parts, for a caller
 that marks the copy in as a stage of its own; a replay is the span
@@ -59,37 +54,17 @@ from typing import Any, Callable
 
 import torch
 
-from pointnet_like_pose_estimation_tpu_torch.kernels.ball_group import ball_query_multi
-from pointnet_like_pose_estimation_tpu_torch.kernels.bn_relu import (
-    bn_relu,
-    bn_relu_eval,
-    bn_relu_eval_pool,
-    plain_bn_relu,
-    plain_bn_relu_eval,
-)
-from pointnet_like_pose_estimation_tpu_torch.kernels.fps import fps
-from pointnet_like_pose_estimation_tpu_torch.kernels.fused_sa import fused_sa_infer
-from pointnet_like_pose_estimation_tpu_torch.ops.grouping import count_grouped
+from pointnet_like_pose_estimation_tpu_torch.utils import counters
 from pointnet_like_pose_estimation_tpu_torch.utils.profiling import span
 
-# the launch counters of the kernel wrappers, by kernel name; bn_relu_plain
-# and bn_relu_eval_plain count the train- and eval-mode BatchNorm + ReLU
-# pairs that the fused kernels did not take
-COUNTED = {"fps": fps, "ball_query": ball_query_multi, "fused_sa": fused_sa_infer, "bn_relu": bn_relu,
-           "bn_relu_plain": plain_bn_relu, "bn_relu_eval": bn_relu_eval, "bn_relu_eval_pool": bn_relu_eval_pool,
-           "bn_relu_eval_plain": plain_bn_relu_eval}
 # the programs a cache keeps before it evicts the least recently used
 MAX_PROGRAMS = 32
-
-
-def _launch_counts() -> dict[str, int]:
-    return {name: wrapper.launches for name, wrapper in COUNTED.items()}
 
 
 @dataclasses.dataclass
 class _Program:
     """One function at one bucket: its static inputs and, on a card, its
-    graph, its static outputs and the launches its capture recorded. A step
+    graph, its static outputs and what its capture counted. A step
     program also keeps the tensors it is bound to (``held``) and their
     addresses."""
 
@@ -97,8 +72,7 @@ class _Program:
     inputs: tuple[torch.Tensor, ...]
     graph: Any = None
     outputs: Any = None
-    launches: dict[str, int] = dataclasses.field(default_factory=dict)
-    grouped_bytes: int = 0
+    counts: dict[str, int] = dataclasses.field(default_factory=dict)
     held: list = dataclasses.field(default_factory=list)
     addresses: tuple = ()
 
@@ -141,15 +115,11 @@ class _Cache:
         """The keys held, least recently used first."""
         return list(self._programs)
 
-    def launches(self, key) -> dict[str, int]:
-        """Kernel launches, by kernel name, that one replay of ``key`` makes."""
-        return dict(self._programs[key].launches)
-
-    def grouped_bytes(self, key) -> int:
-        """Bytes of the grouped tensors that the capture of ``key`` recorded,
-        which each replay adds to ``count_grouped.bytes`` (0 on the CPU, where
-        every call runs the function, which counts them itself)."""
-        return self._programs[key].grouped_bytes
+    def counts(self, key) -> dict[str, int]:
+        """What one replay of ``key`` counts, by counter name: the counters
+        its capture moved, the others staying put ({} on the CPU, where
+        every call runs the function, which counts as it runs)."""
+        return dict(self._programs[key].counts)
 
     def _store(self, key, prog: _Program) -> None:
         self._programs[key] = prog
@@ -185,7 +155,7 @@ class _Cache:
     def _capture(self, prog: _Program) -> None:
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
-        before, grouped = _launch_counts(), count_grouped.bytes
+        before = counters.read()
         graph = torch.cuda.CUDAGraph()
         # no collection while capturing: a graph the collector frees then (one
         # held in a reference cycle, as a program's function and its owner
@@ -198,10 +168,7 @@ class _Cache:
         finally:
             if collecting:
                 gc.enable()
-            for name, count in _launch_counts().items():
-                prog.launches[name] = count - before[name]
-                COUNTED[name].launches = before[name]
-            prog.grouped_bytes, count_grouped.bytes = count_grouped.bytes - grouped, grouped
+            prog.counts = counters.take_back(before)
         prog.graph = graph
 
     def _replay(self, prog: _Program):
@@ -210,9 +177,7 @@ class _Cache:
             if prog.graph is None:
                 return prog.fn(*prog.inputs)
             prog.graph.replay()
-        for name, count in prog.launches.items():
-            COUNTED[name].launches += count
-        count_grouped.bytes += prog.grouped_bytes
+        counters.add(prog.counts)
         return prog.outputs
 
 
@@ -221,7 +186,7 @@ class ProgramCache(_Cache):
 
     Counters: ``captures`` (programs made, each a capture on a card),
     ``replays`` (calls served), ``evictions``, ``capture_seconds`` (host
-    time of the warm-ups and captures) and, per key, ``launches(key)``."""
+    time of the warm-ups and captures) and, per key, ``counts(key)``."""
 
     def __call__(self, key, fn: Callable, inputs):
         return self.replay(self.load(key, fn, inputs))
@@ -284,8 +249,8 @@ class StepProgramCache(_Cache):
     may write there.
 
     A failed capture raises; there is no eager fallback. On the CPU a
-    program is ``fn``, called on the static inputs at every call. The
-    launches of a first call ran and stay counted; a capture's are taken
+    program is ``fn``, called on the static inputs at every call. What a
+    first call counted ran and stays counted; a capture's counts are taken
     back and added at each replay, as in ``ProgramCache``. Counters as
     there, and ``remade``: programs made anew over replaced tensors."""
 

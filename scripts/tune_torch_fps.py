@@ -29,7 +29,6 @@ its own, at the register path's six calls and at FPS_GLOBAL_SHAPES, by CUDA
 graph replay, within one run on one card.
 """
 
-import ctypes
 import json
 import os
 import subprocess
@@ -81,16 +80,11 @@ def tune() -> int:
     built = _build.build(("fps",))["fps"]
     print(f"build {built.seconds:.1f} s")
     print("\n".join(line for line in built.log.splitlines() if "ptxas" in line or "spill" in line))
-    lib = _build.library("fps")
-    lib.plpe_fps.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
     def launch(pts, start, out, threads, ppt, cluster):
         B, N, C = pts.shape
         scratch = torch.empty((B, N), dtype=torch.float32, device="cuda") if ppt == GLOBAL_PATH else None
-        code = lib.plpe_fps(pts.data_ptr(), start.data_ptr(), out.data_ptr(),
-                            None if scratch is None else scratch.data_ptr(), B, N, C, out.shape[1],
-                            threads, ppt, cluster, torch.cuda.current_stream().cuda_stream)
-        _build.check(lib, code, "fps")
+        _build.call("plpe_fps", pts, start, out, scratch, B, N, C, out.shape[1], threads, ppt, cluster)
 
     def run(pts, S, plans, reps):
         B, N, C = pts.shape

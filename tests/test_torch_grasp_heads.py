@@ -1,9 +1,11 @@
 """The grasp request on the heads ``PipelineConfig`` names: the MSG request
 against the benchmark's plain reference (``bench_port/reference/msg.py``)
 on seeded random weights, the default configuration's models and answers,
-the refusal of a head of the wrong kind, and the count of grouped bytes
-(``ops/grouping.py`` ``count_grouped``). CPU only, small sizes."""
+the refusal of a head of the wrong kind, the count of grouped bytes
+(``ops/grouping.py`` ``count_grouped``), and how a program keeps every
+registered counter (``utils/counters.py``). CPU only, small sizes."""
 
+import contextlib
 import sys
 from pathlib import Path
 
@@ -11,10 +13,13 @@ import numpy as np
 import pytest
 import torch
 
+from pointnet_like_pose_estimation_tpu_torch.kernels.bn_relu import plain_bn_relu_eval
 from pointnet_like_pose_estimation_tpu_torch.models import build_model, init_like_flax
+from pointnet_like_pose_estimation_tpu_torch.nn.layers import BatchNormF32
 from pointnet_like_pose_estimation_tpu_torch.ops.grouping import count_grouped
 from pointnet_like_pose_estimation_tpu_torch.pipeline import GraspPipeline, PipelineConfig
 from pointnet_like_pose_estimation_tpu_torch.pipeline.infer import MODEL_KEYS
+from pointnet_like_pose_estimation_tpu_torch.utils import counters
 from pointnet_like_pose_estimation_tpu_torch.utils.programs import ProgramCache, _Program
 
 BENCH = Path(__file__).resolve().parents[1] / "bench_port"
@@ -128,21 +133,46 @@ def test_grouped_bytes_count_the_shapes_and_add_up(name):
     assert count_grouped.bytes - before == 2 * want
 
 
-def test_a_replay_adds_the_grouped_bytes_its_capture_recorded():
-    """A program with a graph (here a stand-in, no card) adds at each replay
-    the bytes its capture recorded; on the CPU a program is its function,
-    which counts as it runs."""
+def _count_outside():
+    """A counter of no module of the package, registered by the test."""
+    _count_outside.launches += 1
+
+
+# counter -> a call on the CPU that moves it, and by how much
+COUNTING = {
+    "grouped_bytes": (lambda: count_grouped(torch.zeros(3, 5)), 60),
+    "bn_relu_eval_plain": (lambda: plain_bn_relu_eval(torch.ones(2, 4), BatchNormF32(4).eval()), 1),
+    "outside": (_count_outside, 1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(COUNTING))
+def test_a_replay_adds_the_grouped_bytes_its_capture_recorded(name, monkeypatch):
+    """A capture (here under a stand-in graph, no card) takes back what
+    every registered counter counted and records the counters it moved;
+    each replay adds them again: the grouped bytes, a kernel wrapper's
+    launches (``kernels/bn_relu.py``, which ``utils/programs.py`` does not
+    import) and a counter registered from outside the package. On the CPU a
+    program is its function, which counts as it runs."""
 
     class Graph:
         def replay(self):
             pass
 
+    monkeypatch.setattr(counters, "_REGISTRY", dict(counters._REGISTRY))
+    counters.counted("outside")(_count_outside)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: "pool")
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "graph", lambda graph, pool: contextlib.nullcontext())
+    count, step = COUNTING[name]
     cache = ProgramCache("cpu")
-    prog = _Program(fn=None, inputs=(), graph=Graph(), outputs="out", grouped_bytes=1234)
-    before = count_grouped.bytes
+    prog = _Program(fn=lambda: (count(), "out")[1], inputs=())
+    before = counters.read()
+    cache._capture(prog)
+    assert counters.read() == before and prog.counts == {name: step}
     assert cache.replay(prog) == "out" and cache.replay(prog) == "out"
-    assert count_grouped.bytes - before == 2 * 1234
+    assert counters.read() == {**before, name: before[name] + 2 * step}
     x = torch.rand(1, 300, 3)
-    out = cache(("f", 1), lambda t: count_grouped(t * 2), (x,))
-    assert count_grouped.bytes - before == 2 * 1234 + x.numel() * 4 and torch.equal(out, x * 2)
-    assert cache.grouped_bytes(("f", 1)) == 0
+    out = cache(("f", 1), lambda t: (count(), t * 2)[1], (x,))
+    assert counters.read()[name] == before[name] + 3 * step and torch.equal(out, x * 2)
+    assert cache.counts(("f", 1)) == {}

@@ -15,8 +15,11 @@ request and scene programs of ``GraspPipeline`` and the executors of
   classes exact, floats to rtol = atol = 1e-4 (as tests/test_torch_pipeline.py:
   float32 products and reductions summed in another order).
 - The cache: keys, eviction, counters and the refusal of an input of
-  another shape, on the CPU, where a program is its function.
+  another shape, on the CPU, where a program is its function; the cache
+  and the counter registry import none of the layers above them.
 """
+
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -249,10 +252,25 @@ def test_program_cache_keys_evicts_and_counts_on_the_cpu(monkeypatch):
     cache(("f", 4), double, (b,))                                          # captured again
     assert cache.keys() == [("f", 5), ("f", 4)]
     assert (cache.captures, cache.replays, cache.evictions) == (4, 6, 2)
-    assert cache.launches(("f", 4)) == {} and len(calls) == 6
+    assert cache.counts(("f", 4)) == {} and len(calls) == 6
     assert cache.capture_seconds >= 0.0
     with pytest.raises(ValueError, match="the program takes"):
         cache(("f", 4), double, (c,))
+
+
+@pytest.mark.parametrize("module, below", [("programs.py", {"kernels", "ops"}),
+                                           ("counters.py", {"kernels", "ops", "nn"})])
+def test_the_program_layer_imports_no_kernel_and_no_op(module, below):
+    """The program cache and the counter registry sit below the kernels and
+    the ops: their sources import no module of those layers, so a counted
+    kernel is added in its own module alone."""
+    import ast
+
+    tree = ast.parse((Path(programs.__file__).parent / module).read_text())
+    names = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
+    names |= {f"{n.module or ''}.{a.name}" for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)
+              for a in n.names}
+    assert not {name for name in names if below & set(name.split("."))}, names
 
 
 def test_program_inputs_are_the_cache_s_own_copies():
