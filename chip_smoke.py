@@ -603,7 +603,8 @@ def kernel_phase(device) -> list[dict]:
                     "one call at each of the eight shapes, 32 clouds"))
 
     return [kernel_entry(name, source, replaces, err[name], shapes, per)
-            for name, source, replaces, shapes, per in entries] + [bn_relu_entry(device), bn_relu_eval_entry(device)]
+            for name, source, replaces, shapes, per in entries] + [bn_relu_entry(device), bn_relu_eval_entry(device),
+                                                                   bn_relu_eval_gather_entry(device)]
 
 
 def bn_relu_entry(device) -> dict:
@@ -803,12 +804,82 @@ def bn_relu_eval_entry(device) -> dict:
         log("  bn_relu_eval: every shape of both requests equals the plain pair bit for bit")
     entry = kernel_entry("bn_relu_eval", "pointnet_like_pose_estimation_tpu_torch/kernels/csrc/bn_relu.cu",
                          "none: XLA fused the JAX package's eval BatchNorm, ReLU and max on the TPU", float(err),
-                         shapes, "one clusters_k32 request (32 clusters x 2048 points): its 22 eval and 7 pooled "
-                         "pairs; msg_request: one clusters_msg_k32 request's 48 and 23")
+                         shapes, "one clusters_k32 request (32 clusters x 2048 points): its 20 eval and 7 pooled "
+                         "pairs; msg_request: one clusters_msg_k32 request's 30 and 23")
     for key, into in (("ssg_pairs", entry), ("msg_pairs", entry.setdefault("msg_request", {}))):
         for field in ("ms", "plain_ms", "bound_ms", "library_ms"):
             into[field] = sum(s[key] * s[field] for s in shapes)
     log(f"  bn_relu_eval a request: SSG {json.dumps({k: entry[k] for k in ('ms', 'bound_ms', 'library_ms')})}, "
+        f"MSG {json.dumps(entry['msg_request'])}")
+    return entry
+
+
+def bn_relu_eval_gather_entry(device) -> dict:
+    """The gathered eval pass (kernels/bn_relu.py bn_relu_eval_gather), the
+    first pair of every grouped set abstraction's scale, on the very inputs
+    of one eager 32-cluster request of each serving cell's models (the
+    per-point products, the centroids' and the ball query's indices, seeded
+    weights): against its plain version bit for bit, then its time (a call
+    in a CUDA graph; the products stay in the L2, as in a request) beside
+    its bound (the output written once and the products, centroid terms
+    and indices read once, at the HBM rate) and its plain version's. No
+    PyTorch call computes it (library_ms: none). The entry's times are one
+    SSG request's; ``msg_request`` holds the MSG request's."""
+    import collections
+
+    import torch
+
+    from pointnet_like_pose_estimation_tpu_torch.kernels import bn_relu as fused
+    from pointnet_like_pose_estimation_tpu_torch.nn import layers
+    from pointnet_like_pose_estimation_tpu_torch.pipeline import GraspPipeline, PipelineConfig
+
+    configs = {"ssg": PipelineConfig(),
+               "msg": PipelineConfig(classifier="pointnet2_cls_msg", rotation="rotation_msg", sign="sign_msg",
+                                     translation="translation_msg")}
+    clusters = blobs(np.random.default_rng(4), 32, 2048)
+    calls, counts = {}, {name: collections.Counter() for name in configs}
+    saved = layers.bn_relu_eval_gather
+    for name, cfg in configs.items():
+        def spy(pf, qc, idx, bias, bn, name=name):
+            shape = (*idx.shape, pf.shape[-1], pf.shape[1])    # B, S, K, C, N
+            counts[name][shape] += 1
+            calls.setdefault(shape, (pf, qc, idx, bias, bn))
+            return saved(pf, qc, idx, bias, bn)
+
+        layers.bn_relu_eval_gather = spy
+        try:
+            with uncounted():
+                eager_request(GraspPipeline.from_random(cfg, seed=5, device=device), clusters)
+        finally:
+            layers.bn_relu_eval_gather = saved
+    shapes, err = [], 0
+    with uncounted(), torch.inference_mode():
+        for shape, (pf, qc, idx, bias, bn) in sorted(calls.items()):
+            B, S, K, C, N = shape
+            args = (bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps)
+            kernel = lambda: fused.bn_relu_eval_gather(pf, qc, idx, bias, bn)
+            reference = lambda: fused.eval_gather_reference(pf, qc, idx, bias, *args)
+            got, want = kernel(), reference()
+            torch.cuda.synchronize()
+            differ = int((got != want).sum())
+            check(differ == 0, f"bn_relu_eval_gather {list(shape)}: {differ} elements differ from its plain version")
+            err = max(err, differ)
+            del got, want
+            bound = 1e3 * 4 * (B * S * K * C + B * N * C + B * S * C + B * S * K) / HBM_BYTES_PER_S
+            ms = cuda_graph_ms(kernel, 10)
+            check(ms >= bound, f"bn_relu_eval_gather {list(shape)}: {ms} ms reads over 100% of its bound {bound} ms")
+            shapes.append({"call": "gathered", "shape": [B, S, K, C, N], "ms": ms, "plain_ms": cuda_ms(reference, 3),
+                           "bound_ms": bound, "bound_by": "bytes", "ssg_pairs": counts["ssg"][shape],
+                           "msg_pairs": counts["msg"][shape]})
+        log("  bn_relu_eval_gather: every shape of both requests equals its plain version bit for bit")
+    entry = kernel_entry("bn_relu_eval_gather", "pointnet_like_pose_estimation_tpu_torch/kernels/csrc/bn_relu.cu",
+                         "none: the grouped first layer was a gather, a concatenation and a Linear on the TPU",
+                         float(err), shapes, "one clusters_k32 request (32 clusters x 2048 points): its 2 "
+                         "gathered first pairs; msg_request: one clusters_msg_k32 request's 18")
+    for key, into in (("ssg_pairs", entry), ("msg_pairs", entry.setdefault("msg_request", {}))):
+        for field in ("ms", "plain_ms", "bound_ms"):
+            into[field] = sum(s[key] * s[field] for s in shapes)
+    log(f"  bn_relu_eval_gather a request: SSG {json.dumps({k: entry[k] for k in ('ms', 'bound_ms', 'plain_ms')})}, "
         f"MSG {json.dumps(entry['msg_request'])}")
     return entry
 
@@ -1101,14 +1172,16 @@ def programs_line(what: str, cache) -> dict:
 
 
 # the bytes of one cluster's grouped tensors in the SSG request: the
-# classifier's three levels (the default heads group nothing)
-SSG_GROUPED_BYTES = 4 * (512 * 32 * 3 + 128 * 64 * (3 + 128) + 128 * (3 + 256))
+# classifier's global level (SA1 and SA2 take their first Linears per point
+# and build none; the default heads group nothing)
+SSG_GROUPED_BYTES = 4 * 128 * (3 + 256)
 # the kernels of the port by the name the profiler gives them
 PROFILED_KERNELS = {"fps": ("fps_register_kernel", "fps_register_spliced_kernel", "fps_dist_kernel",
                             "fps_cluster_kernel"),
                     "ball_query": ("ball_query_kernel",), "fused_sa": ("fused_sa_kernel",),
                     "bn_relu": ("bn_relu_apply_kernel",), "bn_relu_eval": ("bn_relu_eval_kernel",),
-                    "bn_relu_eval_pool": ("bn_relu_eval_max_kernel",)}
+                    "bn_relu_eval_pool": ("bn_relu_eval_max_kernel",),
+                    "bn_relu_eval_gather": ("bn_relu_eval_gather_kernel",)}
 
 
 def profiled_launches(fn) -> dict[str, int]:
@@ -1242,7 +1315,11 @@ def serving_phase(pipe, cpu, kernels: list[dict]) -> dict:
     import torch
 
     from pointnet_like_pose_estimation_tpu_torch.kernels.ball_group import ball_query_multi
-    from pointnet_like_pose_estimation_tpu_torch.kernels.bn_relu import bn_relu_eval, bn_relu_eval_pool
+    from pointnet_like_pose_estimation_tpu_torch.kernels.bn_relu import (
+        bn_relu_eval,
+        bn_relu_eval_gather,
+        bn_relu_eval_pool,
+    )
     from pointnet_like_pose_estimation_tpu_torch.kernels.fps import fps
 
     fix = np.load(FIXTURE)
@@ -1260,20 +1337,23 @@ def serving_phase(pipe, cpu, kernels: list[dict]) -> dict:
     float_keys = ("log_probs", "rotation_deg", "rotation_matrix", "sign_prob", "translation", "width")
     outputs = []
     fps.launches = ball_query_multi.launches = bn_relu_eval.launches = bn_relu_eval_pool.launches = 0
+    bn_relu_eval_gather.launches = 0
     for name, clusters in requests:
         f0, b0 = fps.launches, ball_query_multi.launches
         out, runs = runs_of(pipe.programs, lambda: pipe.infer_clusters(clusters))
         key = pipe._request_call(clusters)[0]
         want_fps = 3 if clusters.shape[1] > 1024 else 2
-        check(pipe.programs.counts(key) == {"fps": want_fps, "ball_query": 2, "bn_relu_eval": 22,
-                                            "bn_relu_eval_pool": 7, "grouped_bytes": key[1] * SSG_GROUPED_BYTES},
+        check(pipe.programs.counts(key) == {"fps": want_fps, "ball_query": 2, "bn_relu_eval": 20,
+                                            "bn_relu_eval_pool": 7, "bn_relu_eval_gather": 2,
+                                            "grouped_bytes": key[1] * SSG_GROUPED_BYTES},
               f"{name}: the program of {key} records {pipe.programs.counts(key)}")
         got_counts = (fps.launches - f0, ball_query_multi.launches - b0)
         check(got_counts == (want_fps * runs, 2 * runs),
               f"{name}: launches fps/ball_query {got_counts}, want ({want_fps}, 2) a run, {runs} runs")
         outputs.append((name, clusters, out, key, runs))
     launches = {"fps": fps.launches, "ball_query": ball_query_multi.launches,
-                "bn_relu_eval": bn_relu_eval.launches + bn_relu_eval_pool.launches}
+                "bn_relu_eval": bn_relu_eval.launches + bn_relu_eval_pool.launches,
+                "bn_relu_eval_gather": bn_relu_eval_gather.launches}
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)
         check(k["launches"] > 0 or k["name"] not in launches, f"{k['name']} never launched on the main path")
@@ -1284,8 +1364,8 @@ def serving_phase(pipe, cpu, kernels: list[dict]) -> dict:
     with uncounted():
         traced = profiled_launches(lambda: pipe.infer_clusters(traced_clusters))
     recorded = pipe.programs.counts(traced_key)
-    check(recorded == {"fps": 3, "ball_query": 2, "bn_relu_eval": 22, "bn_relu_eval_pool": 7,
-                       "grouped_bytes": traced_key[1] * SSG_GROUPED_BYTES}
+    check(recorded == {"fps": 3, "ball_query": 2, "bn_relu_eval": 20, "bn_relu_eval_pool": 7,
+                       "bn_relu_eval_gather": 2, "grouped_bytes": traced_key[1] * SSG_GROUPED_BYTES}
           and all(traced[k] == recorded.get(k, 0) for k in traced),
           f"the profiler saw {traced} in a replay of {traced_key}, its capture recorded {recorded}")
     log(f"  one replay of {traced_key} under torch.profiler: {json.dumps(traced)}, as its capture recorded")

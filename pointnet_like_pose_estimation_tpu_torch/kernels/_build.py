@@ -41,6 +41,7 @@ ENTRIES = {
     "plpe_bn_relu_backward": ("bn_relu", [_PTR] * 11 + [_I64, _INT, _INT]),
     "plpe_bn_relu_eval": ("bn_relu", [_PTR] * 6 + [_I64, _INT, _INT, _F32]),
     "plpe_bn_relu_eval_max": ("bn_relu", [_PTR] * 6 + [_I64] + [_INT] * 3 + [_F32]),
+    "plpe_bn_relu_eval_gather": ("bn_relu", [_PTR] * 9 + [_INT] * 8 + [_F32]),
 }
 KERNELS = tuple(dict.fromkeys(lib for lib, _ in ENTRIES.values()))
 

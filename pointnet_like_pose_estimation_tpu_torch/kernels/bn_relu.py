@@ -21,11 +21,20 @@ equal the plain pair bit for bit (``csrc/bn_relu.cu``, "Eval mode"). They
 have no backward: ``plain_reason`` sends an eval pair whose output needs a
 gradient to the plain path.
 
+``bn_relu_eval_gather(pf, qc, idx, bias, bn)`` is the first eval-mode pair
+of a set abstraction that took its first Linear per point
+(``ops/grouping.py`` ``per_point_products``): it gathers each neighbour's
+product, subtracts its centroid's, adds the Linear's bias and applies the
+eval BatchNorm + ReLU as ``bn_relu_eval`` does, in one pass that writes
+the ``[B, S, K, C]`` output and reads nothing of that size
+(``csrc/bn_relu.cu``, "Gathered eval mode").
+
 Every path counts (``utils/counters.py``): ``bn_relu.launches`` the fused
 train forwards on the card, ``bn_relu_eval.launches`` and
 ``bn_relu_eval_pool.launches`` the eval passes there,
 ``plain_bn_relu.launches`` and ``plain_bn_relu_eval.launches`` the train-
-and eval-mode pairs that took the plain path.
+and eval-mode pairs that took the plain path, ``bn_relu_eval_gather.launches``
+the gathered first pairs on the card.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ from typing import NamedTuple
 import torch
 
 from pointnet_like_pose_estimation_tpu_torch.kernels import _build
+from pointnet_like_pose_estimation_tpu_torch.ops.geometry import index_points
 from pointnet_like_pose_estimation_tpu_torch.utils.counters import counted
 
 # what csrc/bn_relu.cu takes (kThreads, kMaxRowBlocks: four blocks of 256
@@ -153,6 +163,13 @@ def eval_max_reference(x, running_mean, running_var, weight, bias, eps: float) -
         G, K, C).amax(dim=1)
 
 
+def eval_gather_reference(pf, qc, idx, bias, running_mean, running_var, weight, bn_bias, eps: float):
+    """Plain version of the gathered eval pass: ``x = (pf[b, idx[b, s, k]]
+    - qc[b, s]) + bias``, each step rounded on its own, then
+    ``eval_reference`` of ``x``; ``[B, S, K, C]``."""
+    x = (index_points(pf, idx) - qc[:, :, None, :]) + bias
+    return eval_reference(x, running_mean, running_var, weight, bn_bias, eps)
+
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous at a 16-byte boundary (the kernels read float4)."""
@@ -164,8 +181,12 @@ def _validate(x: torch.Tensor, *vectors: torch.Tensor) -> None:
     R, C = x.shape
     if x.dtype != torch.float32 or R < 1 or C % 4:
         raise ValueError(f"bn_relu: want float32 [R >= 1, C % 4 == 0], got {x.dtype} {tuple(x.shape)}")
+    _validate_vectors(C, x.device, vectors)
+
+
+def _validate_vectors(C: int, device: torch.device, vectors) -> None:
     for v in vectors:
-        if v.dtype != torch.float32 or v.shape != (C,) or not v.is_contiguous() or v.device != x.device:
+        if v.dtype != torch.float32 or v.shape != (C,) or not v.is_contiguous() or v.device != device:
             raise ValueError(f"bn_relu: want contiguous float32 [{C}] vectors beside x, got "
                              f"{v.dtype} {tuple(v.shape)} on {v.device}")
 
@@ -211,6 +232,35 @@ def _eval_max_kernel(x, running_mean, running_var, weight, bias, eps: float) -> 
     y = torch.empty((G, C), dtype=x.dtype, device=x.device)
     _build.call("plpe_bn_relu_eval_max", x, y, running_mean, running_var, weight, bias, G, K, C,
                 bn_relu_pool_plan(G, K, C).pieces, eps)
+    return y
+
+
+def _rows(t: torch.Tensor, dtype: torch.dtype, name: str) -> int:
+    """The row stride of ``t`` ``[B, R, C]``, whose rows are contiguous and
+    evenly spaced (a slice of columns of a contiguous tensor); raises where
+    the gathered pass cannot read it (float rows at a 16-byte boundary and
+    a stride of whole 16-byte groups)."""
+    ld = t.stride(1)
+    ok = t.dim() == 3 and t.dtype == dtype and t.stride(2) == 1 and t.stride(0) == t.shape[1] * ld
+    if ok and dtype == torch.float32:
+        ok = ld % 4 == 0 and t.data_ptr() % 16 == 0
+    if not ok:
+        raise ValueError(f"bn_relu_eval_gather: {name} {t.dtype} {tuple(t.shape)} strides {t.stride()} "
+                         f"is no [B, R, C] {dtype} of evenly spaced contiguous rows")
+    return ld
+
+
+def _eval_gather_kernel(pf, qc, idx, bias, running_mean, running_var, weight, bn_bias, eps: float):
+    B, N, C = pf.shape
+    _, S, K = idx.shape
+    if qc.shape != (B, S, C) or idx.shape[0] != B or C % 4 or K < 1:
+        raise ValueError(f"bn_relu_eval_gather: pf {tuple(pf.shape)}, qc {tuple(qc.shape)}, idx "
+                         f"{tuple(idx.shape)} (want [B, N, C], [B, S, C], [B, S, K], C % 4 == 0)")
+    strides = _rows(pf, torch.float32, "pf"), _rows(qc, torch.float32, "qc"), _rows(idx, torch.int32, "idx")
+    _validate_vectors(C, pf.device, (bias, running_mean, running_var, weight, bn_bias))
+    y = torch.empty((B, S, K, C), dtype=pf.dtype, device=pf.device)
+    _build.call("plpe_bn_relu_eval_gather", pf, qc, idx, bias, running_mean, running_var, weight, bn_bias, y,
+                B, N, S, K, C, *strides, eps)
     return y
 
 
@@ -295,6 +345,23 @@ def bn_relu_eval_pool(x: torch.Tensor, bn) -> torch.Tensor:
     else:
         y = eval_max_reference(x3, *_eval_args(bn))
     return y.reshape(*shape[:-2], shape[-1])
+
+
+@counted("bn_relu_eval_gather")
+def bn_relu_eval_gather(pf: torch.Tensor, qc: torch.Tensor, idx: torch.Tensor, bias: torch.Tensor,
+                        bn) -> torch.Tensor:
+    """``torch.relu(bn(pf[b, idx[b, s, k]] - qc[b, s] + bias))`` ``[B, S,
+    K, C]`` for an eval-mode ``BatchNormF32`` ``bn``: the first pair of a
+    set abstraction whose first Linear was taken per point, ``pf`` ``[B, N,
+    C]`` its products of the points, ``qc`` ``[B, S, C]`` those of the
+    centroids' coordinates, ``bias`` its bias and ``idx`` ``[B, S, K]``
+    int32 the neighbours (slices of wider tensors' columns are read in
+    place). One pass on the card; gives no gradient."""
+    if pf.is_cuda:
+        y = _eval_gather_kernel(pf, qc, idx, bias, *_eval_args(bn))
+        bn_relu_eval_gather.launches += 1
+        return y
+    return eval_gather_reference(pf, qc, idx, bias, *_eval_args(bn))
 
 
 @counted("bn_relu_plain")

@@ -1,7 +1,8 @@
 // BatchNorm followed by ReLU over channels-last [R, C] float32, for Hopper
 // (sm_90a): in train mode forward and backward; in eval mode one forward
-// pass, and one that also takes the max over each group of rows (below,
-// "Eval mode").
+// pass, one that also takes the max over each group of rows (below,
+// "Eval mode"), and one that forms its input by a gather (below,
+// "Gathered eval mode").
 //
 // Replaces no TPU kernel. On the TPU, XLA fused the JAX package's
 // train-mode BatchNorm (nn/layers.py batch_norm_f32) and the ReLU after it
@@ -533,6 +534,124 @@ __global__ void __launch_bounds__(kThreads) bn_relu_eval_max_kernel(
   }
 }
 
+// ---- gathered eval mode ------------------------------------------------
+//
+// Gathered eval mode: the first eval-mode pair of a ball-query set
+// abstraction whose first Linear was taken per point (ops/grouping.py
+// per_point_products). Replaces no TPU kernel: the JAX package, and the
+// port before it, gathered every neighbour's features and coordinates,
+// subtracted the centroid, concatenated the two into a [B, S, K, D + P]
+// tensor and ran the first Linear on it, once per (centroid, neighbour).
+// The Linear is linear, so the port now takes it once per point,
+// pf = W [x_j, f_j] ([B, N, C]), and once per centroid on the coordinate
+// columns, qc = W_x c ([B, S, C]); this pass forms the first layer's
+// output from them and applies the eval BatchNorm + ReLU:
+//
+//   t = (pf[b][idx[b][s][k]] - qc[b][s]) + bias      (each rounded on its own)
+//   y[b][s][k] = relu(w * (t - running_mean) * invstd + b)   (eval_bn above)
+//
+// so no grouped tensor exists, and the first layer's output is written once
+// and never read back by a separate eval pass. kernels/bn_relu.py
+// eval_gather_reference spells the same roundings.
+//
+// What bounds it: its writes, [B, S, K, C] float32 at the rate of device
+// memory. It reads K indices and K rows of pf a group, but pf is at most a
+// few tens of MB a launch (N rows) and each point is read by many groups,
+// so the reads come from the 50 MB L2. The design:
+//
+// - One warp a group (b, s). tpr = min(C / 4, 32) lanes span a row, one
+//   16-byte column group each, and rpw = 32 / tpr rows go at once; where C
+//   > 128, blockIdx.y picks the chunk of 32 column groups. A lane keeps its
+//   four channels' BatchNorm constants, the bias and qc[b][s] in
+//   registers for the whole group.
+// - A lane loads four indices, then four 16-byte rows of pf, before it
+//   stores, so that enough reads from L2 are in flight; the stores are
+//   streaming (__stcs) so that the output does not push pf out of L2.
+// - pf, qc and idx may be column slices of wider tensors (the MSG layer's
+//   scales share one product, and one ball query's indices): each takes a
+//   row stride. Offsets are formed in 64 bits.
+// - Nothing is allocated and the launch goes on the caller's stream, so it
+//   captures into a CUDA graph; the output equals its plain version bit for
+//   bit, so a replay equals its eager call.
+
+constexpr int kGatherWarps = kThreads / 32;  // groups a block
+
+struct GatherGeometry {
+  int64_t groups;  // B * S
+  int points;      // N
+  int centroids;   // S
+  int rows;        // K, rows a group
+  int channels;    // C
+  int cgroups;     // C / 4
+  int tpr;         // lanes a row
+  int rpw;         // rows a warp takes at once
+  int chunks;      // column chunks (gridDim.y)
+  int ld_pf, ld_qc, ld_idx;  // row strides in elements
+};
+
+bool make_gather_geometry(int B, int N, int S, int K, int C, int ld_pf, int ld_qc, int ld_idx,
+                          GatherGeometry* g) {
+  if (B <= 0 || N <= 0 || S <= 0 || K <= 0 || C <= 0 || C % 4 != 0) return false;
+  if (ld_pf < C || ld_qc < C || ld_idx < K || ld_pf % 4 != 0 || ld_qc % 4 != 0) return false;
+  g->groups = static_cast<int64_t>(B) * S;
+  g->points = N;
+  g->centroids = S;
+  g->rows = K;
+  g->channels = C;
+  g->cgroups = C / 4;
+  g->tpr = g->cgroups < 32 ? g->cgroups : 32;
+  g->rpw = 32 / g->tpr;
+  g->chunks = (g->cgroups + g->tpr - 1) / g->tpr;
+  g->ld_pf = ld_pf;
+  g->ld_qc = ld_qc;
+  g->ld_idx = ld_idx;
+  return (g->groups + kGatherWarps - 1) / kGatherWarps < (int64_t{1} << 31);
+}
+
+__global__ void __launch_bounds__(kThreads) bn_relu_eval_gather_kernel(
+    const float* __restrict__ pf, const float* __restrict__ qc, const int* __restrict__ idx,
+    const float* __restrict__ lin_bias, const float* __restrict__ running_mean,
+    const float* __restrict__ running_var, const float* __restrict__ weight, const float* __restrict__ bias,
+    float* __restrict__ y, float eps, GatherGeometry g) {
+  const int lane = threadIdx.x & 31;
+  const int64_t grp = static_cast<int64_t>(blockIdx.x) * kGatherWarps + threadIdx.x / 32;
+  const int ty = lane / g.tpr;
+  const int cg = blockIdx.y * g.tpr + (lane - ty * g.tpr);
+  if (grp >= g.groups || ty >= g.rpw || cg >= g.cgroups) return;
+  const int64_t b = grp / g.centroids;
+  const EvalChannels k = eval_channels_of(running_mean, running_var, weight, bias, cg, eps);
+  float lb[4];
+  load_channels(lin_bias, cg, lb);
+  const float4 q = __ldg(reinterpret_cast<const float4*>(qc + grp * g.ld_qc) + cg);
+  const float* rows = pf + b * g.points * g.ld_pf + 4 * cg;
+  const int* nb = idx + grp * g.ld_idx;
+  float4* out = reinterpret_cast<float4*>(y + grp * g.rows * g.channels) + cg;
+  auto one = [&](const float4& v) {
+    float o[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float t = eval_bn(k, c, __fadd_rn(__fsub_rn(at(v, c), at(q, c)), lb[c]));
+      o[c] = t != t ? t : fmaxf(t, 0.0f);  // torch.relu's clamp: NaN passes
+    }
+    return make4(o);
+  };
+  auto row = [&](int j) {
+    return __ldg(reinterpret_cast<const float4*>(rows + static_cast<int64_t>(j) * g.ld_pf));
+  };
+  int r = ty;
+  for (; r + (kUnrollOne - 1) * g.rpw < g.rows; r += kUnrollOne * g.rpw) {
+    int j[kUnrollOne];
+#pragma unroll
+    for (int u = 0; u < kUnrollOne; ++u) j[u] = __ldg(nb + r + u * g.rpw);
+    float4 v[kUnrollOne];
+#pragma unroll
+    for (int u = 0; u < kUnrollOne; ++u) v[u] = row(j[u]);
+#pragma unroll
+    for (int u = 0; u < kUnrollOne; ++u) __stcs(out + static_cast<int64_t>(r + u * g.rpw) * g.cgroups, one(v[u]));
+  }
+  for (; r < g.rows; r += g.rpw) __stcs(out + static_cast<int64_t>(r) * g.cgroups, one(row(__ldg(nb + r))));
+}
+
 int finish_blocks(const Geometry& g) { return (g.channels + kThreads / 32 - 1) / (kThreads / 32); }
 
 }  // namespace
@@ -612,6 +731,23 @@ int plpe_bn_relu_eval_max(const float* x, float* y, const float* running_mean, c
   }
   const dim3 grid(static_cast<unsigned>(g.blocks), g.chunks);
   bn_relu_eval_max_kernel<<<grid, kThreads, 0, st>>>(x, y, running_mean, running_var, weight, bias, eps, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The gathered eval pass: y [B, S, K, C] (contiguous, 16-byte aligned) from
+// pf [B, N, C], qc [B, S, C] and idx [B, S, K] (int32, every index below
+// N), each with its row stride (ld_pf, ld_qc: multiples of 4, rows at a
+// 16-byte boundary), lin_bias the first Linear's bias and the BatchNorm's
+// running statistics, weight and bias ([C] each).
+int plpe_bn_relu_eval_gather(const float* pf, const float* qc, const int* idx, const float* lin_bias,
+                             const float* running_mean, const float* running_var, const float* weight,
+                             const float* bias, float* y, int B, int N, int S, int K, int C, int ld_pf, int ld_qc,
+                             int ld_idx, float eps, void* stream) {
+  GatherGeometry g;
+  if (!make_gather_geometry(B, N, S, K, C, ld_pf, ld_qc, ld_idx, &g)) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>((g.groups + kGatherWarps - 1) / kGatherWarps), g.chunks);
+  bn_relu_eval_gather_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      pf, qc, idx, lin_bias, running_mean, running_var, weight, bias, y, eps, g);
   return static_cast<int>(cudaGetLastError());
 }
 

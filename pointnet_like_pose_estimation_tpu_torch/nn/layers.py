@@ -27,6 +27,7 @@ from pointnet_like_pose_estimation_tpu_torch.kernels.bn_relu import (
     INT32_ELEMENTS,
     bn_relu,
     bn_relu_eval,
+    bn_relu_eval_gather,
     bn_relu_eval_pool,
     plain_bn_relu,
     plain_bn_relu_eval,
@@ -169,20 +170,28 @@ def plain_reason(x: torch.Tensor, bn: nn.Module) -> str | None:
     PyTorch's eval BatchNorm rounds otherwise than the eval passes) or
     ``"device"`` (not a CUDA tensor: the CPU, where the port is held
     against the JAX package)."""
+    return pair_reason(bn, x.dtype, x.shape[-1], x.numel(), x.requires_grad, x.is_cuda)
+
+
+def pair_reason(bn: nn.Module, dtype: torch.dtype, width: int, numel: int, requires_grad: bool,
+                is_cuda: bool) -> str | None:
+    """``plain_reason`` of a pair's input described by its dtype, its
+    channels, its elements, whether it requires a gradient and its device,
+    for an input not yet formed."""
     if type(bn) is not BatchNormF32:
         return "module"
     if bn_group() is not None:
         return "bn_sync"
-    if x.dtype != torch.float32:
+    if dtype != torch.float32:
         return "dtype"
-    if x.shape[-1] % 4:
+    if width % 4:
         return "width"
     if not bn.training:
-        if torch.is_grad_enabled() and (x.requires_grad or bn.weight.requires_grad or bn.bias.requires_grad):
+        if torch.is_grad_enabled() and (requires_grad or bn.weight.requires_grad or bn.bias.requires_grad):
             return "eval"
-        if x.numel() >= INT32_ELEMENTS:
+        if numel >= INT32_ELEMENTS:
             return "size"
-    if not x.is_cuda:
+    if not is_cuda:
         return "device"
     return None
 
@@ -193,7 +202,9 @@ class PointwiseMLP(nn.Module):
     float32 pair on the card: in train mode the train-mode Function, in
     eval mode one pass), else as ``torch.relu(bn(x))``. ``forward_max``
     adds the max over the second-last axis, which an eval-mode last pair
-    takes in its own pass."""
+    takes in its own pass. ``forward_max_grouped`` is ``forward_max`` of
+    grouped rows whose first Linear was taken per point, its first pair
+    formed from the gathered products in one pass."""
 
     def __init__(self, in_features: int, features: Sequence[int], final_activation: bool = True):
         super().__init__()
@@ -213,8 +224,19 @@ class PointwiseMLP(nn.Module):
         C]``: the same values, bit for bit."""
         return self._layers(x, pool=True)
 
-    def _layers(self, x: torch.Tensor, pool: bool) -> torch.Tensor:
-        for i in range(self.n):
+    def forward_max_grouped(self, pf: torch.Tensor, qc: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """``forward_max`` of the groups ``idx [B, S, K]`` whose first
+        Linear was taken per point (``ops/grouping.py``
+        ``per_point_products``): the first layer's output at ``[b, s, k]``
+        is ``pf[b, idx[b, s, k]] - qc[b, s] + dense_0.bias``, which
+        ``bn_relu_eval_gather`` forms with the first eval-mode pair in one
+        pass; the other layers as ``forward_max``. Only for the layers that
+        ``nn/set_abstraction.py`` ``per_point_reason`` admits."""
+        x = bn_relu_eval_gather(pf, qc, idx, self.dense_0.bias, self.bn_0)
+        return self._layers(x, pool=True, start=1)
+
+    def _layers(self, x: torch.Tensor, pool: bool, start: int = 0) -> torch.Tensor:
+        for i in range(start, self.n):
             x = getattr(self, f"dense_{i}")(x)
             if i < self.n - 1 or self.final_activation:
                 bn = getattr(self, f"bn_{i}")

@@ -6,11 +6,15 @@ package), channels-last: grouped tensors are ``[B, S, K, C]``.
 ``SetAbstractionMSG._group`` build on one device (not the point-sharded
 groupings of ``parallel``) to ``count_grouped.bytes``, the counter
 ``grouped_bytes`` (``utils/counters.py``), which the request and step
-programs keep as they keep the kernels' launches."""
+programs keep as they keep the kernels' launches. A set abstraction that
+applies its first Linear per point (``per_point_products``, chosen by
+``nn/set_abstraction.py`` ``per_point_reason``) builds no grouped tensor,
+so nothing is counted for it."""
 
 from __future__ import annotations
 
 import torch
+from torch.nn import functional as F
 
 # module import: kernels.ball_group itself imports ops.geometry
 from pointnet_like_pose_estimation_tpu_torch.kernels import ball_group
@@ -66,10 +70,7 @@ def sample_and_group(
         ctx.dispatch_count += 1
         return sharded_ops.sharded_sample_and_group(points, features, num_centroids, num_neighbors, radius,
                                                     ctx.mesh, axis=ctx.axis, batch_axis=ctx.batch_axis)
-    if fps_idx is None:
-        fps_idx = farthest_point_sample(points, num_centroids)
-    centroids = index_points(points, fps_idx)
-    idx = query_ball_point(radius, num_neighbors, points, centroids)
+    fps_idx, centroids, idx = sample_and_query(points, num_centroids, num_neighbors, radius, fps_idx=fps_idx)
     grouped = index_points(points, idx) - centroids[:, :, None, :]
     if features is not None:
         grouped = torch.cat([grouped, index_points(features, idx)], dim=-1)
@@ -77,6 +78,37 @@ def sample_and_group(
     if return_fps:
         return centroids, grouped, fps_idx
     return centroids, grouped
+
+
+def sample_and_query(points: torch.Tensor, num_centroids: int, num_neighbors: int, radius: float, *,
+                     fps_idx: torch.Tensor | None = None):
+    """``sample_and_group``'s FPS and ball query without the gather:
+    ``(fps_idx [B, S], centroids [B, S, P], idx [B, S, K] int32)``."""
+    if fps_idx is None:
+        fps_idx = farthest_point_sample(points, num_centroids)
+    centroids = index_points(points, fps_idx)
+    return fps_idx, centroids, query_ball_point(radius, num_neighbors, points, centroids)
+
+
+def per_point_products(weight: torch.Tensor, points: torch.Tensor, features: torch.Tensor | None,
+                       centroids: torch.Tensor, coords_first: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """A grouped set abstraction's first Linear (``weight`` ``[C1, P + D]``,
+    no bias) taken before the grouping. Its input row for neighbour j of
+    centroid c is ``[x_j - c, f_j]`` (``coords_first``: ``sample_and_group``)
+    or ``[f_j, x_j - c]`` (``SetAbstractionMSG``), and the product is linear,
+    so ``W [x_j - c, f_j] = W [x_j, f_j] - W_x c``. Returns ``(pf [B, N,
+    C1], qc [B, S, C1])``: ``W`` applied to every point's uncentred row and
+    its coordinate columns ``W_x`` to every centroid. ``pf[b, idx] - qc[b,
+    s]`` is then the grouped product, summed in another order (float32
+    sums of N rows where the grouping took S * K)."""
+    P = points.shape[-1]
+    if features is None:
+        return F.linear(points, weight), F.linear(centroids, weight)
+    if coords_first:
+        rows, w_x = torch.cat([points, features], dim=-1), weight[:, :P]
+    else:
+        rows, w_x = torch.cat([features, points], dim=-1), weight[:, -P:]
+    return F.linear(rows, weight), F.linear(centroids, w_x)
 
 
 def sample_and_group_all(points: torch.Tensor, features: torch.Tensor | None):

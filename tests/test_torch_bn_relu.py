@@ -133,7 +133,7 @@ def test_python_mirrors_the_bn_relu_kernel_constants():
     assert "constexpr int kMaxRowBlocks = 4 * 132;" in cu and MAX_ROW_BLOCKS == 4 * 132
     # no kernel of the op may be grouped by the benchmark as a matrix product, FPS or ball query
     names = set(re.findall(r"__global__ void __launch_bounds__\(\w+\) (\w+)\(", cu))
-    assert len(names) == 7 and all(n.startswith("bn_relu_") for n in names)
+    assert len(names) == 8 and all(n.startswith("bn_relu_") for n in names)
     assert f"constexpr int kPoolThreads = 512 * 132;" in cu and POOL_THREADS == 512 * 132
     assert f"constexpr int kMinPieceRows = {MIN_PIECE_ROWS};" in cu
     for mark in ("gemm", "Gemm", "cutlass", "addmm", "sm90_xmma", "fps_", "ball_query_kernel"):

@@ -19,8 +19,10 @@ from pointnet_like_pose_estimation_tpu_torch.kernels.ball_group import (
 from pointnet_like_pose_estimation_tpu_torch.kernels.bn_relu import (
     bn_relu,
     bn_relu_eval,
+    bn_relu_eval_gather,
     bn_relu_eval_pool,
     bn_relu_pool_plan,
+    eval_gather_reference,
     plain_bn_relu,
     plain_bn_relu_eval,
 )
@@ -460,31 +462,137 @@ def test_bn_relu_eval_kernels_carry_nan_as_the_plain_pair(card, G, K):
     assert torch.equal(pooled.nan_to_num(), want_pooled.nan_to_num())
 
 
+# the grouped set abstractions of both serving cells' requests at 32 clusters
+# (B, N, P, D, S, radii, ks, first widths): SSG SA1 and SA2 (D + P = 131),
+# MSG SA1 at P = 3 and 10 (K = 16, 32, 128), SA2 at D + P = 323 and 330;
+# then ragged: K off the four loads in flight, C above a warp's 128
+# channels, S off a block's eight groups
+GATHER_SHAPES = {
+    "ssg_sa1": (32, 1024, 3, 0, 512, (0.2,), (32,), (64,)),
+    "ssg_sa2": (32, 512, 3, 128, 128, (0.4,), (64,), (128,)),
+    "msg_sa1": (32, 1024, 3, 0, 512, *_MSG1, (32, 64, 64)),
+    "msg_head_sa1": (32, 1024, 10, 0, 512, *_MSG1, (32, 64, 64)),
+    "msg_sa2": (32, 512, 3, 320, 128, *_MSG2, (64, 128, 128)),
+    "msg_head_sa2": (32, 512, 10, 320, 128, *_MSG2, (64, 128, 128)),
+    "ragged": (3, 200, 3, 4, 37, (0.3, 0.6), (5, 50), (4, 136)),
+}
+
+
+@pytest.mark.parametrize("name", list(GATHER_SHAPES))
+def test_bn_relu_eval_gather_kernel_equals_its_plain_version(card, name):
+    """The gathered eval pass against ``eval_gather_reference`` on the
+    card, at each grouped set abstraction's shapes: the scales' first
+    Linears as one product per point (``per_point_products``, MSG's
+    feature-first layout), each scale's columns and neighbours read in
+    place (slices), equal bit for bit, a second call the same bits, one
+    launch a call."""
+    from pointnet_like_pose_estimation_tpu_torch.ops import farthest_point_sample, index_points
+    from pointnet_like_pose_estimation_tpu_torch.ops.grouping import per_point_products
+
+    B, N, P, D, S, radii, ks, widths = GATHER_SHAPES[name]
+    points = _spliced(B, N, P, seed=N + P).to(card)
+    g = torch.Generator().manual_seed(D + S)
+    features = torch.randn(B, N, D, generator=g).abs().to(card) if D else None
+    weight = (torch.randn(sum(widths), P + D, generator=g) / (P + D) ** 0.5).to(card)
+    with torch.inference_mode():
+        centroids = index_points(points, farthest_point_sample(points, S))
+        idx_all = ball_query_multi(points, centroids, radii, ks)
+        pf, qc = per_point_products(weight, points, features, centroids, coords_first=False)
+        c_off = k_off = 0
+        for C, K in zip(widths, ks):
+            _, bn = _eval_pair(card, 1, C, seed=C + K)
+            bias = torch.randn(C, generator=g).to(card)
+            args = pf[..., c_off:c_off + C], qc[..., c_off:c_off + C], idx_all[..., k_off:k_off + K]
+            g0 = bn_relu_eval_gather.launches
+            got, again = bn_relu_eval_gather(*args, bias, bn), bn_relu_eval_gather(*args, bias, bn)
+            want = eval_gather_reference(*args, bias, bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps)
+            torch.cuda.synchronize()
+            assert bn_relu_eval_gather.launches - g0 == 2 and got.shape == (B, S, K, C)
+            assert torch.equal(got, again)
+            assert torch.equal(got, want), (f"K={K} C={C}: max gap {float((got - want).abs().max())}, "
+                                            f"{int((got != want).sum())} differ")
+            c_off, k_off = c_off + C, k_off + K
+
+
+def _msg_config():
+    from pointnet_like_pose_estimation_tpu_torch.pipeline import PipelineConfig
+
+    return PipelineConfig(classifier="pointnet2_cls_msg", rotation="rotation_msg", sign="sign_msg",
+                          translation="translation_msg")
+
+
+def _request_gaps(got: dict, want: dict) -> dict:
+    """``class_err`` and ``head_err`` as the benchmark's check forms them
+    (the widest log-probability gap; each head output's widest gap over its
+    largest value), the rotation compared where the served sign agrees."""
+    assert torch.equal(got["pred_class"], want["pred_class"])
+    same = (got["sign_prob"] > 0.5) == (want["sign_prob"] > 0.5)
+    head = 0.0
+    for k in ("rotation_deg", "rotation_matrix", "sign_prob", "translation", "width"):
+        a, b = (got[k][same], want[k][same]) if k.startswith("rotation") else (got[k], want[k])
+        head = max(head, float((a - b).abs().max() / b.abs().max().clamp(min=1e-6)))
+    return {"class_err": float((got["log_probs"] - want["log_probs"]).abs().max()), "head_err": head,
+            "signs_agree": int(same.sum())}
+
+
+@pytest.mark.parametrize("models", ["ssg", "msg"])
+def test_per_point_request_matches_the_grouped_route(card, monkeypatch, models):
+    """A request of 32 clusters of 2048 points (the two serving cells'
+    shape) on the per-point route against the grouped route (the reason
+    function forced to refuse it): the classes equal, ``class_err`` within
+    1e-4 and ``head_err`` within 5e-5, a tenth of the benchmark's limits
+    (the first layers' sums reassociated in float32; expected ~1e-6). Its
+    replay equals its eager call bit for bit, and the grouped route runs
+    no gathered pass."""
+    from pointnet_like_pose_estimation_tpu_torch.nn import set_abstraction
+    from pointnet_like_pose_estimation_tpu_torch.pipeline import GraspPipeline, PipelineConfig
+
+    cfg = PipelineConfig() if models == "ssg" else _msg_config()
+    pipe = GraspPipeline.from_random(cfg, seed=6, device="cuda")
+    rng = np.random.default_rng(9)
+    clusters = (rng.uniform(-0.5, 0.5, (32, 1, 3)) + 0.05 * rng.standard_normal((32, 2048, 3))).astype(np.float32)
+    key, fn, inputs, _ = pipe._request_call(clusters)
+    replay = {k: v.clone() for k, v in pipe.programs(key, fn, inputs).items()}
+    with torch.inference_mode():
+        eager = fn(*(x.to(card) for x in inputs))
+        g0 = bn_relu_eval_gather.launches
+        monkeypatch.setattr(set_abstraction, "per_point_reason", lambda *a: "grouped")
+        grouped = fn(*(x.to(card) for x in inputs))
+    torch.cuda.synchronize()
+    assert bn_relu_eval_gather.launches == g0
+    assert _gap(replay, eager) == 0.0
+    gaps = _request_gaps(eager, grouped)
+    assert gaps["class_err"] <= 1e-4 and gaps["head_err"] <= 5e-5, gaps
+
+
 def test_request_programs_take_the_eval_passes(card):
     """One replay of each serving request program (the default SSG models,
     the MSG ones) runs every eval-mode BatchNorm + ReLU pair of its shared
-    MLPs through the eval passes and none plain: SSG 22 passes and 7 pooled
-    (3 of the classifier's set abstractions, one a PointNet head), MSG 48
-    and 23 (the classifier's and the rotation head's seven MLPs, the sign
-    and translation heads' four, the width head's one)."""
+    MLPs through the eval passes and none plain: SSG 20 passes, 7 pooled
+    (3 of the classifier's set abstractions, one a PointNet head) and 2
+    gathered (the first pairs of SSG SA1 and SA2), MSG 30, 23 and 18 (the
+    classifier's and the rotation head's seven MLPs, the sign and
+    translation heads' four, the width head's one; a gathered first pair
+    in each scale of their grouped set abstractions: the classifier's two
+    levels, the rotation head's two, the sign and translation heads' one,
+    three scales each)."""
     from pointnet_like_pose_estimation_tpu_torch.pipeline import GraspPipeline, PipelineConfig
 
-    msg = PipelineConfig(classifier="pointnet2_cls_msg", rotation="rotation_msg", sign="sign_msg",
-                         translation="translation_msg")
     rng = np.random.default_rng(8)
     clusters = (rng.uniform(-0.5, 0.5, (4, 1, 3)) + 0.05 * rng.standard_normal((4, 1300, 3))).astype(np.float32)
-    for cfg, passes, pooled in ((PipelineConfig(), 22, 7), (msg, 48, 23)):
+    for cfg, passes, pooled, gathered in ((PipelineConfig(), 20, 7, 2), (_msg_config(), 30, 23, 18)):
         pipe = GraspPipeline.from_random(cfg, seed=4, device="cuda")
         key, fn, inputs, _ = pipe._request_call(clusters)
         pipe.programs(key, fn, inputs)                       # warm-up and capture
-        counts = (bn_relu_eval.launches, bn_relu_eval_pool.launches, plain_bn_relu_eval.launches)
+        counters = (bn_relu_eval, bn_relu_eval_pool, bn_relu_eval_gather, plain_bn_relu_eval)
+        counts = tuple(c.launches for c in counters)
         pipe.programs(key, fn, inputs)                       # one replay
         torch.cuda.synchronize()
-        after = (bn_relu_eval.launches, bn_relu_eval_pool.launches, plain_bn_relu_eval.launches)
-        assert tuple(b - a for a, b in zip(counts, after)) == (passes, pooled, 0)
+        after = tuple(c.launches for c in counters)
+        assert tuple(b - a for a, b in zip(counts, after)) == (passes, pooled, gathered, 0)
         recorded = pipe.programs.counts(key)
-        assert (recorded["bn_relu_eval"], recorded["bn_relu_eval_pool"], recorded.get("bn_relu_eval_plain", 0)) == (
-            passes, pooled, 0)
+        names = ("bn_relu_eval", "bn_relu_eval_pool", "bn_relu_eval_gather", "bn_relu_eval_plain")
+        assert tuple(recorded.get(n, 0) for n in names) == (passes, pooled, gathered, 0)
 
 
 @pytest.mark.parametrize("name", ["pointnet2_cls_ssg", "pointnet2_cls_msg"])
@@ -743,9 +851,11 @@ def test_request_replay_equals_eager_and_takes_new_inputs(card):
         elif key == ("request", 4, 1536):
             assert not torch.equal(first["log_probs"], replay["log_probs"])
     assert pipe.programs.captures == 2 and pipe.programs.replays == 3
-    # the counters a replay moves, the others stay at 0: 4 clusters of 4,621,824 grouped bytes
-    assert pipe.programs.counts(("request", 4, 1536)) == {"fps": 3, "ball_query": 2, "bn_relu_eval": 22,
-                                                         "bn_relu_eval_pool": 7, "grouped_bytes": 4 * 4_621_824}
+    # the counters a replay moves, the others stay at 0: 4 clusters of 132,608 grouped bytes (the
+    # global level's; SA1 and SA2 take their first Linears per point and build none)
+    assert pipe.programs.counts(("request", 4, 1536)) == {"fps": 3, "ball_query": 2, "bn_relu_eval": 20,
+                                                         "bn_relu_eval_pool": 7, "bn_relu_eval_gather": 2,
+                                                         "grouped_bytes": 4 * 132_608}
 
 
 def test_msg_request_replay_equals_eager_and_counts_its_grouped_bytes(card):
@@ -755,7 +865,8 @@ def test_msg_request_replay_equals_eager_and_counts_its_grouped_bytes(card):
     (the resampling FPS, two levels of the classifier and of the rotation
     head, one of the sign and translation heads), and the grouped bytes it
     recorded, which the warm-up and the replay each add: at K = 4, an eighth
-    of a 32-cluster request's 2,841,591,808."""
+    of a 32-cluster request's 64,438,272 (the global levels'; the grouped
+    set abstractions take their first Linears per point and build none)."""
     from pointnet_like_pose_estimation_tpu_torch.ops.grouping import count_grouped
     from pointnet_like_pose_estimation_tpu_torch.pipeline import GraspPipeline, PipelineConfig
 
@@ -768,8 +879,8 @@ def test_msg_request_replay_equals_eager_and_counts_its_grouped_bytes(card):
     g0 = count_grouped.bytes
     replay = pipe.programs(key, fn, inputs)
     torch.cuda.synchronize()
-    assert pipe.programs.counts(key) == {"fps": 7, "ball_query": 6, "bn_relu_eval": 48, "bn_relu_eval_pool": 23,
-                                         "grouped_bytes": 2_841_591_808 // 8}
+    assert pipe.programs.counts(key) == {"fps": 7, "ball_query": 6, "bn_relu_eval": 30, "bn_relu_eval_pool": 23,
+                                         "bn_relu_eval_gather": 18, "grouped_bytes": 64_438_272 // 8}
     assert count_grouped.bytes - g0 == 2 * pipe.programs.counts(key)["grouped_bytes"]
     with torch.inference_mode():
         eager = fn(*(x.to(card) for x in inputs))
