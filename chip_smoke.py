@@ -24,7 +24,10 @@ Phases, any failure exits non-zero:
    SHARED_FPS_SHAPES; the fused train-mode BatchNorm + ReLU against the
    plain pair at SA1's shapes (forward bit for bit, gradients within
    BN_RELU_GRAD_TOL) and its forward and backward timed at every pair of
-   SSG's train step at B = 24 beside the plain pair (library_ms);
+   SSG's train step at B = 24 beside the plain pair (library_ms); the kNN
+   query at the nine shapes of a 32-cluster Point Transformer request
+   (bench_port/harness/bounds_pt.py knn_calls), with tied distances,
+   against its plain version (indices equal) and timed beside its bound;
 4. serve requests through GraspPipeline.from_checkpoints on the five
    committed checkpoints: the replay clusters of tests/fixtures and three
    seeded batches (M > 1024, M < 1024, and one more M > 1024 in the bucket
@@ -41,7 +44,13 @@ Phases, any failure exits non-zero:
    only summation order and last-bit FPS ties differ). Then latency per
    request of a replay and of the eager function, in turns, at 4 and 32
    clusters, peak device memory, and the programs' captures, capture time,
-   replays and pool;
+   replays and pool. Then one request of 32 clusters of 2048 points on
+   Point Transformer (PipelineConfig(classifier="point_transformer_cls"),
+   seeded weights), a replay of a captured program, with every counter set
+   to 0 just before it: it must count the 5 FPS, 9 kNN and the eval
+   BatchNorm + ReLU launches and the grouped bytes its program records,
+   one replay traced by torch.profiler must run those kernels, and its
+   outputs are held against its function run eagerly on the card;
 5. the fused set-abstraction kernel: its MMA fragment layout on one
    16x8x8 tile against a float64 product; then against its plain version
    at the shapes of the four SA calls of the two executors (B = 8), with
@@ -604,7 +613,7 @@ def kernel_phase(device) -> list[dict]:
 
     return [kernel_entry(name, source, replaces, err[name], shapes, per)
             for name, source, replaces, shapes, per in entries] + [bn_relu_entry(device), bn_relu_eval_entry(device),
-                                                                   bn_relu_eval_gather_entry(device)]
+                                                                   bn_relu_eval_gather_entry(device), knn_entry(device)]
 
 
 def bn_relu_entry(device) -> dict:
@@ -882,6 +891,51 @@ def bn_relu_eval_gather_entry(device) -> dict:
     log(f"  bn_relu_eval_gather a request: SSG {json.dumps({k: entry[k] for k in ('ms', 'bound_ms', 'plain_ms')})}, "
         f"MSG {json.dumps(entry['msg_request'])}")
     return entry
+
+
+def knn_entry(device) -> dict:
+    """The kNN query (kernels/knn.py knn) at the nine shapes of one
+    32-cluster Point Transformer request (bench_port/harness/bounds_pt.py
+    knn_calls: each stage's points among themselves, each strided
+    TransitionDown's centroids among the points before): its indices
+    against its plain version's on the card, equal (a quarter of the
+    points repeat others, so distances tie and go to the lower index),
+    then its time (a call in a CUDA graph) beside its bound
+    (bounds_pt.knn_bound_ms: the larger of the bytes once at the HBM rate
+    and 9 operations a pair at the f32 peak) and its plain version's. No
+    PyTorch call computes it (library_ms: none)."""
+    import torch
+
+    if os.path.join(ROOT, "bench_port") not in sys.path:
+        sys.path.insert(0, os.path.join(ROOT, "bench_port"))
+    from harness.bounds_pt import knn_bound_ms, knn_calls
+
+    from pointnet_like_pose_estimation_tpu_torch.kernels.knn import knn, knn_reference
+
+    rng = np.random.default_rng(6)
+    B, shapes, err = 32, [], 0
+    with uncounted(), torch.inference_mode():
+        for N, S, k in knn_calls(1024):
+            pts = torch.from_numpy(unit_clouds(rng, B, N)).to(device)
+            pts[:, N - N // 4:] = pts[:, :N // 4]
+            queries = pts[:, :S].contiguous()
+            kernel = lambda: knn(pts, queries, k)
+            reference = lambda: knn_reference(pts, queries, k)
+            got, want = kernel(), reference()
+            torch.cuda.synchronize()
+            differ = int((got != want).sum())
+            check(differ == 0, f"knn [{B}, {N} -> {S}, k {k}]: {differ} indices differ from its plain version")
+            err = max(err, differ)
+            bound = knn_bound_ms(B, N, S, k)
+            ms = cuda_graph_ms(kernel, 20)
+            check(ms >= bound, f"knn [{B}, {N} -> {S}, k {k}]: {ms} ms reads over 100% of its bound {bound} ms")
+            shapes.append({"call": "query", "shape": [B, N, S, k], "ms": ms, "plain_ms": cuda_ms(reference, 3),
+                           "bound_ms": bound,
+                           "bound_by": "operations" if 1e3 * 9 * B * S * N / F32_FLOP_PER_S >= bound else "bytes"})
+        log("  knn: every query of a request equals its plain version")
+    return kernel_entry("knn", "pointnet_like_pose_estimation_tpu_torch/kernels/csrc/knn.cu",
+                        "none: the JAX package selects no neighbours by rank", float(err), shapes,
+                        "one clusters_pt_k32 request (32 clusters resampled to 1024 points): its nine queries")
 
 
 def kernel_entry(name, source, replaces, err, shapes, per_request_of) -> dict:
@@ -1181,7 +1235,15 @@ PROFILED_KERNELS = {"fps": ("fps_register_kernel", "fps_register_spliced_kernel"
                     "ball_query": ("ball_query_kernel",), "fused_sa": ("fused_sa_kernel",),
                     "bn_relu": ("bn_relu_apply_kernel",), "bn_relu_eval": ("bn_relu_eval_kernel",),
                     "bn_relu_eval_pool": ("bn_relu_eval_max_kernel",),
-                    "bn_relu_eval_gather": ("bn_relu_eval_gather_kernel",)}
+                    "bn_relu_eval_gather": ("bn_relu_eval_gather_kernel",), "knn": ("knn_kernel",)}
+# what the program of one Point Transformer request of 32 clusters of 2048
+# points records: the resampling FPS and the four strided ones, the nine kNN
+# queries, the eval pairs (53 of the classifier's and 16 of the heads'; the
+# pooled last pairs of its 4 TransitionDowns and of the 4 heads; its 13
+# position-encoder pairs of 3 channels on the plain path) and the
+# neighbourhood tensors' bytes, 45,485,184 a cluster
+PT_REQUEST_COUNTS = {"fps": 5, "knn": 9, "bn_relu_eval": 69, "bn_relu_eval_pool": 8, "bn_relu_eval_plain": 13,
+                     "grouped_bytes": 32 * 45_485_184}
 
 
 def profiled_launches(fn) -> dict[str, int]:
@@ -1304,6 +1366,51 @@ def fast_infer_phase(pipe, executors, kernels: list[dict]) -> dict:
     return report
 
 
+def pt_request(device) -> dict:
+    """One request of 32 clusters of 2048 points through ``infer_clusters``
+    on Point Transformer (``classifier="point_transformer_cls"``, seeded
+    weights, the PointNet heads), a replay of the program that a request
+    before it captured, with every counter set to 0 just before it: what it
+    counts is PT_REQUEST_COUNTS and nothing else, as its program records;
+    one more replay under torch.profiler runs on the card the kernels those
+    counts name; its outputs against its function run eagerly on the card
+    (integers equal, floats within PROGRAM_TOL of each output's largest
+    value: the seeded weights give logits of thousands)."""
+    from pointnet_like_pose_estimation_tpu_torch.pipeline import GraspPipeline, PipelineConfig
+    from pointnet_like_pose_estimation_tpu_torch.utils import counters
+
+    pipe = GraspPipeline.from_random(PipelineConfig(classifier="point_transformer_cls"), seed=5, device=device)
+    rng = np.random.default_rng(7)
+    pipe.infer_clusters(blobs(rng, 32, 2048))
+    clusters = blobs(rng, 32, 2048)
+    counters.take_back({})
+    out, runs = runs_of(pipe.programs, lambda: pipe.infer_clusters(clusters))
+    counts = {name: n for name, n in counters.read().items() if n}
+    key = pipe._request_call(clusters)[0]
+    check(runs == 1 and counts == PT_REQUEST_COUNTS and pipe.programs.counts(key) == PT_REQUEST_COUNTS,
+          f"Point Transformer request: {runs} runs counted {counts}, its program {key} records "
+          f"{pipe.programs.counts(key)}, want one replay of {PT_REQUEST_COUNTS}")
+    with uncounted():
+        traced = profiled_launches(lambda: pipe.infer_clusters(clusters))
+        eager = eager_request(pipe, clusters)
+    check(all(traced[k] == PT_REQUEST_COUNTS.get(k, 0) for k in traced),
+          f"Point Transformer request: the profiler saw {traced} in a replay, its capture recorded {counts}")
+    check(set(out) == set(eager), f"Point Transformer request: keys {sorted(out)} against {sorted(eager)}")
+    gap = 0.0
+    for name in out:
+        a, b = np.asarray(out[name]), np.asarray(eager[name])
+        if not np.issubdtype(a.dtype, np.floating):
+            check(np.array_equal(a, b), f"Point Transformer request: {name} differs from the eager run on the card")
+            continue
+        gap = max(gap, float(np.abs(a - b).max() / max(1.0, np.abs(b).max())))
+        check(bool(np.isfinite(a).all()), f"Point Transformer request: {name} not finite")
+    check(gap <= PROGRAM_TOL, f"Point Transformer request: floats {gap} of their scale from the eager run")
+    log(f"  Point Transformer K=32 M=2048: one replay of {key} counted {json.dumps(counts)}; under "
+        f"torch.profiler {json.dumps(traced)}; the eager run on the card within {gap:.3g} of the scale; "
+        f"classes {out['pred_class'].tolist()}")
+    return {"bucket": list(key), "counts": counts, "profiled_launches": traced, "eager_gap": gap}
+
+
 def serving_phase(pipe, cpu, kernels: list[dict]) -> dict:
     """Requests through ``infer_clusters``, each one replay of its bucket's
     program: the launches of each request are its program's launches per
@@ -1354,6 +1461,8 @@ def serving_phase(pipe, cpu, kernels: list[dict]) -> dict:
     launches = {"fps": fps.launches, "ball_query": ball_query_multi.launches,
                 "bn_relu_eval": bn_relu_eval.launches + bn_relu_eval_pool.launches,
                 "bn_relu_eval_gather": bn_relu_eval_gather.launches}
+    point_transformer = pt_request(pipe.device)
+    launches["knn"] = point_transformer["counts"]["knn"]
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)
         check(k["launches"] > 0 or k["name"] not in launches, f"{k['name']} never launched on the main path")
@@ -1370,7 +1479,8 @@ def serving_phase(pipe, cpu, kernels: list[dict]) -> dict:
           f"the profiler saw {traced} in a replay of {traced_key}, its capture recorded {recorded}")
     log(f"  one replay of {traced_key} under torch.profiler: {json.dumps(traced)}, as its capture recorded")
 
-    report = {"requests": {}, "profiled_replay": {"bucket": list(traced_key), "launches": traced}}
+    report = {"requests": {}, "profiled_replay": {"bucket": list(traced_key), "launches": traced},
+              "point_transformer": point_transformer}
     for name, clusters, out, key, runs in outputs:
         K = clusters.shape[0]
         check(out["rotation_matrix"].shape == (K, 3, 3) and out["translation"].shape == (K, 3),

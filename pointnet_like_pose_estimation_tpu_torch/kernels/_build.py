@@ -42,6 +42,7 @@ ENTRIES = {
     "plpe_bn_relu_eval": ("bn_relu", [_PTR] * 6 + [_I64, _INT, _INT, _F32]),
     "plpe_bn_relu_eval_max": ("bn_relu", [_PTR] * 6 + [_I64] + [_INT] * 3 + [_F32]),
     "plpe_bn_relu_eval_gather": ("bn_relu", [_PTR] * 9 + [_INT] * 8 + [_F32]),
+    "plpe_knn": ("knn", [_PTR] * 3 + [_INT] * 7),
 }
 KERNELS = tuple(dict.fromkeys(lib for lib, _ in ENTRIES.values()))
 

@@ -1,5 +1,6 @@
 """Model registry of the port: every name of the JAX package's registry
-(``models/__init__.py`` there) resolves to a ``ModelSpec``."""
+(``models/__init__.py`` there) resolves to a ``ModelSpec``, and so does
+the port's own ``point_transformer_cls``."""
 
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from pointnet_like_pose_estimation_tpu_torch.models.classifiers import (
     PointNet2ClsMSG,
     PointNet2ClsSSG,
     PointNetCls,
+    PointTransformerCls,
 )
 from pointnet_like_pose_estimation_tpu_torch.models.heads import (
     GenericPoseHead,
@@ -34,6 +36,7 @@ __all__ = [
     "PointNetCls",
     "PointNet2ClsSSG",
     "PointNet2ClsMSG",
+    "PointTransformerCls",
     "VanillaHead",
     "SSGHead",
     "MSGHead",
@@ -129,6 +132,8 @@ _SPECS = [
     # so it sees its own label, as in the JAX package
     ModelSpec("pose_classify", lambda nc: GenericPoseHead(3 + nc, out_dim=nc, classify=True),
               "classify", "spliced", _cls_loss, _cls_metric),
+    # the port's own beyond the JAX package's registry
+    ModelSpec("point_transformer_cls", PointTransformerCls, *_CLS),
 ]
 
 MODEL_REGISTRY = {spec.name: spec for spec in _SPECS}
@@ -161,7 +166,8 @@ def init_like_flax(model: nn.Module, generator: torch.Generator) -> nn.Module:
             if isinstance(m, nn.Linear):
                 std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
                 nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
-                nn.init.zeros_(m.bias)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
             elif isinstance(m, nn.BatchNorm1d):
                 m.reset_parameters()
         for m in model.modules():

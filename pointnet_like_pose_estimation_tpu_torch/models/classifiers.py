@@ -1,6 +1,7 @@
 """PointNet and PointNet++ SSG and MSG classifiers (counterparts of
 ``PointNetCls``, ``PointNet2ClsSSG`` and ``PointNet2ClsMSG`` in
-``models/classifiers.py`` of the JAX package)."""
+``models/classifiers.py`` of the JAX package), and a Point Transformer
+classifier, which the JAX package does not have."""
 
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ from pointnet_like_pose_estimation_tpu_torch.nn import (
     SetAbstraction,
     SetAbstractionMSG,
 )
+from pointnet_like_pose_estimation_tpu_torch.nn.point_transformer import PointTransformerBlock, TransitionDown
+from pointnet_like_pose_estimation_tpu_torch.ops.grouping import query_knn
 
 
 class PointNetCls(nn.Module):
@@ -74,5 +77,47 @@ class PointNet2ClsMSG(nn.Module):
         p, f = self.sa2(p, f)
         _, f = self.sa3(p, f)
         g = f.reshape(f.shape[0], -1)
+        log_probs = torch.log_softmax(self.head(g).float(), dim=-1)
+        return log_probs, g, torch.argmax(log_probs, dim=-1)
+
+
+class PointTransformerCls(nn.Module):
+    """Point Transformer's encoder (``pointtransformer_seg_repro`` of
+    POSTECH-CVLab/point-transformer: planes 32-64-128-256-512, blocks
+    2-3-4-6-3, stride 1-4-4-4-4, nsample 8-16-16-16-16, share_planes 8), a
+    mean over the last stage's points and an FC 256-128-C head with
+    dropout 0.5, on ``[B, N, 3]`` (the coordinates are the first stage's
+    features too). Stage s is its TransitionDown (``down_s``) and
+    ``blocks[s] - 1`` blocks (``block_s_j``), as the published
+    ``_make_enc`` builds it; its kNN is queried once and shared by its
+    blocks.
+
+    Returns ``(log_probs [B, C], global feature [B, 512], pred [B])``.
+    """
+
+    PLANES = (32, 64, 128, 256, 512)
+    BLOCKS = (2, 3, 4, 6, 3)
+    STRIDES = (1, 4, 4, 4, 4)
+    NSAMPLE = (8, 16, 16, 16, 16)
+    SHARE_PLANES = 8
+
+    def __init__(self, num_classes: int = 7):
+        super().__init__()
+        c_in = 3
+        for s, (c, blocks, stride, k) in enumerate(zip(self.PLANES, self.BLOCKS, self.STRIDES, self.NSAMPLE)):
+            self.add_module(f"down_{s}", TransitionDown(c_in, c, stride, k))
+            for j in range(blocks - 1):
+                self.add_module(f"block_{s}_{j}", PointTransformerBlock(c, self.SHARE_PLANES))
+            c_in = c
+        self.head = DenseHead(c_in, [256, 128, num_classes], style="cls_v2", dropout_rate=0.5)
+
+    def forward(self, points: torch.Tensor):
+        p, x = points, points
+        for s, (blocks, k) in enumerate(zip(self.BLOCKS, self.NSAMPLE)):
+            p, x = getattr(self, f"down_{s}")(p, x)
+            idx = query_knn(k, p, p)
+            for j in range(blocks - 1):
+                x = getattr(self, f"block_{s}_{j}")(p, x, idx)
+        g = x.mean(dim=1)
         log_probs = torch.log_softmax(self.head(g).float(), dim=-1)
         return log_probs, g, torch.argmax(log_probs, dim=-1)

@@ -57,7 +57,8 @@ class Linear(nn.Linear):
         dt = self.compute_dtype
         if dt is None:
             return super().forward(x)
-        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 def set_compute_dtype(model: nn.Module, dtype: str) -> nn.Module:
@@ -196,22 +197,31 @@ def pair_reason(bn: nn.Module, dtype: torch.dtype, width: int, numel: int, requi
     return None
 
 
+def bn_relu_pair(x: torch.Tensor, bn: nn.Module) -> torch.Tensor:
+    """``torch.relu(bn(x))`` over the trailing axis of ``x``, on the path
+    ``plain_reason`` picks: fused where it gives None (in train mode the
+    train-mode Function, in eval mode one pass), else the plain pair."""
+    if plain_reason(x, bn):
+        return plain_bn_relu(x, bn) if bn.training else plain_bn_relu_eval(x, bn)
+    return bn_relu(x, bn) if bn.training else bn_relu_eval(x, bn)
+
+
 class PointwiseMLP(nn.Module):
     """Stack of Linear -> BatchNorm -> ReLU over the trailing channel axis.
-    A BatchNorm + ReLU pair runs fused where ``plain_reason`` gives None (a
-    float32 pair on the card: in train mode the train-mode Function, in
-    eval mode one pass), else as ``torch.relu(bn(x))``. ``forward_max``
-    adds the max over the second-last axis, which an eval-mode last pair
-    takes in its own pass. ``forward_max_grouped`` is ``forward_max`` of
-    grouped rows whose first Linear was taken per point, its first pair
-    formed from the gathered products in one pass."""
+    Each BatchNorm + ReLU pair is ``bn_relu_pair``. ``forward_max`` adds
+    the max over the second-last axis, which an eval-mode last pair takes
+    in its own pass. ``forward_max_grouped`` is ``forward_max`` of grouped
+    rows whose first Linear was taken per point, its first pair formed from
+    the gathered products in one pass. ``bias=False`` builds Linears
+    without a bias."""
 
-    def __init__(self, in_features: int, features: Sequence[int], final_activation: bool = True):
+    def __init__(self, in_features: int, features: Sequence[int], final_activation: bool = True,
+                 bias: bool = True):
         super().__init__()
         self.n = len(features)
         self.final_activation = final_activation
         for i, width in enumerate(features):
-            self.add_module(f"dense_{i}", Linear(in_features, width))
+            self.add_module(f"dense_{i}", Linear(in_features, width, bias=bias))
             if i < self.n - 1 or final_activation:
                 self.add_module(f"bn_{i}", BatchNormF32(width))
             in_features = width
@@ -240,14 +250,9 @@ class PointwiseMLP(nn.Module):
             x = getattr(self, f"dense_{i}")(x)
             if i < self.n - 1 or self.final_activation:
                 bn = getattr(self, f"bn_{i}")
-                if plain_reason(x, bn):
-                    x = plain_bn_relu(x, bn) if bn.training else plain_bn_relu_eval(x, bn)
-                elif bn.training:
-                    x = bn_relu(x, bn)
-                elif pool and i == self.n - 1:
+                if pool and i == self.n - 1 and not bn.training and plain_reason(x, bn) is None:
                     return bn_relu_eval_pool(x, bn)
-                else:
-                    x = bn_relu_eval(x, bn)
+                x = bn_relu_pair(x, bn)
         return x.amax(dim=-2) if pool else x
 
 
@@ -305,7 +310,7 @@ def pre_bn_biases(model: nn.Module) -> set[str]:
     for prefix, m in model.named_modules():
         for child, sub in m.named_children():
             found = re.fullmatch(r"(dense|fc|conv)(_?\d+)", child)
-            if not isinstance(sub, nn.Linear) or found is None:
+            if not isinstance(sub, nn.Linear) or sub.bias is None or found is None:
                 continue
             if isinstance(m, DenseHead) and m.style == "cls_v1" and child == "fc_1":
                 continue

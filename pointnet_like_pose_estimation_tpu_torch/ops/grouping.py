@@ -1,9 +1,11 @@
 """Ball-query grouping (counterpart of ``ops/grouping.py`` of the JAX
-package), channels-last: grouped tensors are ``[B, S, K, C]``.
+package) and kNN grouping, channels-last: grouped tensors are ``[B, S, K,
+C]``.
 
 ``count_grouped`` adds the bytes of every grouped tensor that
-``sample_and_group``, ``sample_and_group_all`` and
-``SetAbstractionMSG._group`` build on one device (not the point-sharded
+``sample_and_group``, ``sample_and_group_all``, ``knn_group``,
+``SetAbstractionMSG._group`` and Point Transformer's attention
+(``nn/point_transformer.py``) build on one device (not the point-sharded
 groupings of ``parallel``) to ``count_grouped.bytes``, the counter
 ``grouped_bytes`` (``utils/counters.py``), which the request and step
 programs keep as they keep the kernels' launches. A set abstraction that
@@ -18,6 +20,7 @@ from torch.nn import functional as F
 
 # module import: kernels.ball_group itself imports ops.geometry
 from pointnet_like_pose_estimation_tpu_torch.kernels import ball_group
+from pointnet_like_pose_estimation_tpu_torch.kernels.knn import knn
 from pointnet_like_pose_estimation_tpu_torch.ops.geometry import index_points
 from pointnet_like_pose_estimation_tpu_torch.ops.sampling import farthest_point_sample
 from pointnet_like_pose_estimation_tpu_torch.utils.counters import counted
@@ -36,6 +39,25 @@ def query_ball_point(
     """``[B, S, K]`` int32: the K lowest-index points within ``radius`` of
     each centroid, empty slots repeating the first, an empty ball N-1."""
     return ball_group.ball_query(points, centroids, radius, num_neighbors)
+
+
+def query_knn(num_neighbors: int, points: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """``[B, S, min(num_neighbors, N)]`` int64: the nearest points of each
+    query, nearest first, a tie to the lower index (``kernels/knn.py``).
+    A cloud of fewer than ``num_neighbors`` points gives every point."""
+    return knn(points, queries, min(int(num_neighbors), points.shape[1]))
+
+
+def knn_group(points: torch.Tensor, features: torch.Tensor | None, queries: torch.Tensor,
+              idx: torch.Tensor) -> torch.Tensor:
+    """``[B, S, K, 3 (+D)]``: each neighbour ``idx [B, S, K]`` of each query
+    as its coordinates relative to the query, then its features (the
+    order of Point Transformer's ``queryandgroup`` with ``use_xyz``),
+    counted by ``count_grouped``."""
+    grouped = index_points(points, idx) - queries[:, :, None, :]
+    if features is not None:
+        grouped = torch.cat([grouped, index_points(features, idx)], dim=-1)
+    return count_grouped(grouped)
 
 
 def sample_and_group(

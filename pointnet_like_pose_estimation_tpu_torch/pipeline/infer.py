@@ -79,7 +79,8 @@ class PipelineConfig:
     """The JAX package's PipelineConfig: the reference's capture thresholds
     (distance cut, plane, outlier test, DBSCAN), the request size and the
     models. ``classifier`` is a registry name of task 'classify' on the raw
-    cloud: ``pointnet2_cls_ssg``, ``pointnet2_cls_msg`` or ``pointnet_cls``.
+    cloud: ``pointnet2_cls_ssg``, ``pointnet2_cls_msg``, ``pointnet_cls`` or
+    ``point_transformer_cls`` (Point Transformer, the port's own).
     ``rotation``, ``sign``, ``translation`` and ``width`` are registry
     names of the four heads (``MODEL_KINDS`` gives the task and inputs each
     key takes), the vanilla PointNet heads by default; for example

@@ -1355,3 +1355,101 @@ def test_spans_and_device_records_share_a_clock(card):
     split = idle_by_span(events)
     assert {k for k in split if k} == {"serve.upload", "program.replay", "serve.copy_back"}
     assert 0 < sum(v["idle_s"] for v in split.values()) < (copy_back.end - host["serve.upload"].start) / 1e6
+
+
+# --- Point Transformer: the kNN kernel, the classifier and its request program -------------------
+
+# (N, S, k) of the nine kNN queries of a 1024-point forward: each stage's points among themselves,
+# each strided TransitionDown's centroids among the points before (harness/bounds_pt.py knn_calls)
+PT_KNN_CALLS = [(1024, 1024, 8), (1024, 256, 16), (256, 256, 16), (256, 64, 16), (64, 64, 16), (64, 16, 16),
+                (16, 16, 16), (16, 4, 16), (4, 4, 4)]
+
+
+@pytest.mark.parametrize("N,S,k", PT_KNN_CALLS + [(5000, 300, 7), (16384, 65, 16)])
+def test_knn_kernel_matches_plain_version(card, N, S, k):
+    """Every shape of a 32-cluster request, a cloud above 48 KB of shared
+    memory and the largest the kernel takes: the indices equal the plain
+    version's on the card. A quarter of the points repeat others, so runs
+    of distances tie and go to the lower index; the queries are points of
+    the cloud, as in the model, and others."""
+    from pointnet_like_pose_estimation_tpu_torch.kernels.knn import knn, knn_reference
+
+    B = 32 if N <= 1024 else 2
+    pts = _clouds(B, N, N + S)
+    pts[:, N - N // 4:] = pts[:, :N // 4]
+    pts = pts.to(card)
+    queries = torch.cat([pts[:, :S - S // 4], torch.rand(B, S // 4, 3, device=card) - 0.5], dim=1)
+    got = knn(pts, queries, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, knn_reference(pts, queries, k))
+
+
+def _pt_bench():
+    import sys
+
+    bench = os.path.join(ROOT, "bench_port")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    from kinds import clusters_pt
+    from reference import point_transformer as PT
+
+    return clusters_pt, PT
+
+
+def test_point_transformer_on_card_matches_the_cpu_reference(card):
+    """``point_transformer_cls`` at the published widths on 8 clouds of 1024
+    points on the card against the benchmark's plain reference on the CPU,
+    on the benchmark's weights: the kNN indices are equal on both, so only
+    the products' summation order parts them; the random weights grow the
+    features to logits of thousands, and the gap is held to 1e-5 of
+    each output's largest value, the classes equal where the best two
+    log-probabilities are further apart than that."""
+    from pointnet_like_pose_estimation_tpu_torch.models import build_model
+
+    clusters_pt, PT = _pt_bench()
+    state = clusters_pt.model_state(PT.build(PT.NAME), 2**31 + 9, "cpu")
+    ref = PT.build(PT.NAME).eval()
+    ref.load_state_dict(state, strict=True)
+    port = build_model("point_transformer_cls").eval()
+    port.load_state_dict(state, strict=True)
+    x = _clouds(8, 1024, 5)
+    with torch.inference_mode():
+        want = ref(x)
+        got = port.to(card)(x.to(card))
+    torch.cuda.synchronize()
+    for g, w in zip(got[:2], want[:2]):
+        assert float((g.cpu() - w).abs().max()) <= 1e-5 * float(w.abs().max())
+    top2 = want[0].topk(2, dim=-1).values
+    sure = top2[:, 0] - top2[:, 1] > 1e-5 * float(want[0].abs().max())
+    assert torch.equal(got[2].cpu()[sure], want[2][sure])
+
+
+def test_pt_request_replay_equals_eager_and_counts_its_work(card):
+    """The request program with ``classifier="point_transformer_cls"``: its
+    replay against its function called eagerly on the card (classes exact,
+    floats within 1e-5 of their scale; expected bit for bit), and the
+    counters its capture recorded at K = 4: the resampling FPS and four
+    strided ones, nine kNN queries, the eval pairs (53 of the classifier's,
+    its 13 position-encoder pairs of 3 channels on the plain path, 16 of
+    the PointNet heads'; the pooled last pairs of its 4 TransitionDowns and
+    the 4 heads) and the neighbourhood tensors, 45,485,184 bytes a cluster."""
+    from pointnet_like_pose_estimation_tpu_torch.ops.grouping import count_grouped
+    from pointnet_like_pose_estimation_tpu_torch.pipeline import GraspPipeline, PipelineConfig
+
+    pipe = GraspPipeline.from_random(PipelineConfig(classifier="point_transformer_cls"), seed=3, device="cuda")
+    rng = np.random.default_rng(5)
+    clusters = (rng.uniform(-0.5, 0.5, (4, 1, 3)) + 0.05 * rng.standard_normal((4, 1300, 3))).astype(np.float32)
+    key, fn, inputs, _ = pipe._request_call(clusters)
+    g0 = count_grouped.bytes
+    replay = pipe.programs(key, fn, inputs)
+    torch.cuda.synchronize()
+    assert pipe.programs.counts(key) == {"fps": 5, "knn": 9, "bn_relu_eval": 69, "bn_relu_eval_pool": 8,
+                                         "bn_relu_eval_plain": 13, "grouped_bytes": 4 * 45_485_184}
+    assert count_grouped.bytes - g0 == 2 * pipe.programs.counts(key)["grouped_bytes"]
+    with torch.inference_mode():
+        eager = fn(*(x.to(card) for x in inputs))
+    scale = float(eager["log_probs"].abs().max())
+    assert torch.equal(replay["pred_class"], eager["pred_class"])
+    assert float((replay["log_probs"] - eager["log_probs"]).abs().max()) <= 1e-5 * scale
+    assert _gap({k: v for k, v in replay.items() if k != "log_probs"},
+                {k: v for k, v in eager.items() if k != "log_probs"}) <= 1e-5

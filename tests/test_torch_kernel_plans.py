@@ -292,7 +292,8 @@ def test_registry_fps_calls_take_a_register_path(name, monkeypatch):
     model = build_model(name, K).eval()
     with torch.no_grad():
         model(*args)
-    has_sa = "ssg" in name or "msg" in name
+    # the set abstractions sample by FPS, and so do Point Transformer's strided TransitionDowns
+    has_sa = "ssg" in name or "msg" in name or name == "point_transformer_cls"
     assert bool(calls) == has_sa, calls
     for n, c in calls:
         assert c in REGISTER_CHANNELS and n <= MAX_REGISTER_POINTS, (n, c)
