@@ -28,6 +28,9 @@ Phases, any failure exits non-zero:
    query at the nine shapes of a 32-cluster Point Transformer request
    (bench_port/harness/bounds_pt.py knn_calls), with tied distances,
    against its plain version (indices equal) and timed beside its bound;
+   Point Transformer's one-pass attention on the 13 layers' own inputs of
+   one 32-cluster request, against its plain version in float32 and in
+   float64 (PT_ATTENTION_ERR), and timed beside its bound;
 4. serve requests through GraspPipeline.from_checkpoints on the five
    committed checkpoints: the replay clusters of tests/fixtures and three
    seeded batches (M > 1024, M < 1024, and one more M > 1024 in the bucket
@@ -47,8 +50,9 @@ Phases, any failure exits non-zero:
    replays and pool. Then one request of 32 clusters of 2048 points on
    Point Transformer (PipelineConfig(classifier="point_transformer_cls"),
    seeded weights), a replay of a captured program, with every counter set
-   to 0 just before it: it must count the 5 FPS, 9 kNN and the eval
-   BatchNorm + ReLU launches and the grouped bytes its program records,
+   to 0 just before it: it must count the 5 FPS, 9 kNN, 13 attention
+   passes and the eval BatchNorm + ReLU launches and the grouped bytes its
+   program records,
    one replay traced by torch.profiler must run those kernels, and its
    outputs are held against its function run eagerly on the card;
 5. the fused set-abstraction kernel: its MMA fragment layout on one
@@ -231,6 +235,10 @@ MMA_TOL = 1e-5
 # card on the same inputs: the same kernels on the same data, so the floats
 # are expected bit for bit; the gap measured is printed
 PROGRAM_TOL = 1e-5
+# Point Transformer's one-pass attention against float64: its distance over
+# the plain float32 version's, both float32 sums in other orders (the
+# kernel's chains of FMAs against cuBLAS's blocked products)
+PT_ATTENTION_ERR = 10.0
 # the train step on the card against the CPU: loss, metric, BN statistics,
 # parameters, and every gradient element where the tensor allows. A gradient
 # element is held to TRAIN_TOL relative and TRAIN_TOL times the model's
@@ -613,7 +621,8 @@ def kernel_phase(device) -> list[dict]:
 
     return [kernel_entry(name, source, replaces, err[name], shapes, per)
             for name, source, replaces, shapes, per in entries] + [bn_relu_entry(device), bn_relu_eval_entry(device),
-                                                                   bn_relu_eval_gather_entry(device), knn_entry(device)]
+                                                                   bn_relu_eval_gather_entry(device), knn_entry(device),
+                                                                   pt_attention_entry(device)]
 
 
 def bn_relu_entry(device) -> dict:
@@ -938,6 +947,91 @@ def knn_entry(device) -> dict:
                         "one clusters_pt_k32 request (32 clusters resampled to 1024 points): its nine queries")
 
 
+def pt_attention_bound_ms(B: int, N: int, K: int, C: int, c: int) -> tuple[float, str]:
+    """Least ms of one Point Transformer attention pass over B clouds of N
+    points, K neighbours each, C channels, c = C / share_planes weights a
+    neighbour: the larger of its bytes at the HBM rate (q, k, v and the
+    points read and the output written once, the int64 indices and the
+    layer's parameters read once) and its operations at the f32 peak, a
+    multiply-add two: a neighbour's relative position (3), the position
+    encoder's hidden layer (21, and 5 a BatchNorm + ReLU element: 15) and
+    its last Linear (7 C), the relation (2 C) and its pair (5 C), the
+    weight MLP (2 C c + c, 5 c, 2 c^2 + c), the softmax (5 c: max, subtract,
+    exp, sum, divide) and the weighted sum (3 C); a query's bn2 pair (5 C).
+    Which of the two bounds it is returned beside it."""
+    params = 9 + 3 + 3 * C + C + c * C + c + c * c + c + 4 * (3 + C + c + C)
+    nbytes = 4 * (4 * B * N * C + 3 * B * N + params) + 8 * B * N * K
+    ops = B * N * K * (39 + 17 * C + 2 * C * c + 2 * c * c + 12 * c) + 5 * B * N * C
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def pt_attention_entry(device) -> dict:
+    """Point Transformer's one-pass attention (kernels/pt_attention.py
+    pt_attention) on the very inputs of the 13 layers of one eager
+    32-cluster request (seeded weights, the features grown to thousands):
+    against its plain version in float32 and in float64, where the
+    kernel's distance from float64 must stay within PT_ATTENTION_ERR times
+    the plain float32 version's (both sum in float32, in other orders; the
+    softmax over logits of hundreds turns a last-bit difference of a logit
+    into a visible one of the output, in both alike), then its time (a call
+    in a CUDA graph; its inputs in the L2, as in a request) beside its
+    bound (pt_attention_bound_ms) and its plain version's. No PyTorch call
+    computes it (library_ms: none)."""
+    import torch
+
+    from pointnet_like_pose_estimation_tpu_torch.kernels.pt_attention import pt_attention, pt_attention_reference
+    from pointnet_like_pose_estimation_tpu_torch.nn import point_transformer
+    from pointnet_like_pose_estimation_tpu_torch.pipeline import GraspPipeline, PipelineConfig
+
+    calls = []
+    saved = point_transformer.pt_attention
+
+    def spy(*args):
+        calls.append(args)
+        return saved(*args)
+
+    point_transformer.pt_attention = spy
+    try:
+        with uncounted():
+            eager_request(GraspPipeline.from_random(PipelineConfig(classifier="point_transformer_cls"), seed=5,
+                                                    device=device), blobs(np.random.default_rng(8), 32, 2048))
+    finally:
+        point_transformer.pt_attention = saved
+    check(len(calls) == 13, f"pt_attention: {len(calls)} calls in one Point Transformer request, want 13")
+    shapes, worst = [], 0.0
+    with uncounted(), torch.inference_mode():
+        for i, (p, q, k, v, idx, attn, bn2) in enumerate(calls):
+            B, N, K = idx.shape
+            C, c = q.shape[-1], q.shape[-1] // attn.share_planes
+            kernel = lambda: pt_attention(p, q, k, v, idx, attn, bn2)
+            reference = lambda: pt_attention_reference(p, q, k, v, idx, attn, bn2)
+            got, want = kernel(), reference()
+            exact = pt_attention_reference(p.double(), q.double(), k.double(), v.double(), idx,
+                                           copy.deepcopy(attn).double(), copy.deepcopy(bn2).double())
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), f"pt_attention layer {i} [{B}, {N}, {K}, {C}]: not finite")
+            scale = float(exact.abs().max())
+            err_kernel = float((got.double() - exact).abs().max())
+            err_plain = float((want.double() - exact).abs().max())
+            check(err_kernel <= PT_ATTENTION_ERR * err_plain + 1e-6 * scale,
+                  f"pt_attention layer {i} [{B}, {N}, {K}, {C}]: {err_kernel} from float64, the plain version "
+                  f"{err_plain}, the output's scale {scale}")
+            worst = max(worst, err_kernel / scale)
+            del got, want, exact
+            bound, by = pt_attention_bound_ms(B, N, K, C, c)
+            ms = cuda_graph_ms(kernel, 20)
+            check(ms >= bound, f"pt_attention layer {i}: {ms} ms reads over 100% of its bound {bound} ms")
+            shapes.append({"call": f"layer {i}", "shape": [B, N, K, C], "ms": ms, "plain_ms": cuda_ms(reference, 3),
+                           "bound_ms": bound, "bound_by": by, "err_from_f64": err_kernel,
+                           "plain_err_from_f64": err_plain, "scale": scale})
+        log(f"  pt_attention: the 13 layers within {PT_ATTENTION_ERR}x the plain version's distance from float64 "
+            f"(the widest {worst:.3g} of the output's scale)")
+    return kernel_entry("pt_attention", "pointnet_like_pose_estimation_tpu_torch/kernels/csrc/pt_attention.cu",
+                        "none: the JAX package has no Point Transformer", worst, shapes,
+                        "one clusters_pt_k32 request (32 clusters resampled to 1024 points): its 13 attention layers")
+
+
 def kernel_entry(name, source, replaces, err, shapes, per_request_of) -> dict:
     """One kernel of the kernels JSON line: its times and bounds summed over
     the calls of one request; ``launches`` is filled in by the path runs."""
@@ -1235,15 +1329,19 @@ PROFILED_KERNELS = {"fps": ("fps_register_kernel", "fps_register_spliced_kernel"
                     "ball_query": ("ball_query_kernel",), "fused_sa": ("fused_sa_kernel",),
                     "bn_relu": ("bn_relu_apply_kernel",), "bn_relu_eval": ("bn_relu_eval_kernel",),
                     "bn_relu_eval_pool": ("bn_relu_eval_max_kernel",),
-                    "bn_relu_eval_gather": ("bn_relu_eval_gather_kernel",), "knn": ("knn_kernel",)}
+                    "bn_relu_eval_gather": ("bn_relu_eval_gather_kernel",), "knn": ("knn_kernel",),
+                    "pt_attention": ("pt_attention_kernel",)}
 # what the program of one Point Transformer request of 32 clusters of 2048
 # points records: the resampling FPS and the four strided ones, the nine kNN
-# queries, the eval pairs (53 of the classifier's and 16 of the heads'; the
-# pooled last pairs of its 4 TransitionDowns and of the 4 heads; its 13
-# position-encoder pairs of 3 channels on the plain path) and the
-# neighbourhood tensors' bytes, 45,485,184 a cluster
-PT_REQUEST_COUNTS = {"fps": 5, "knn": 9, "bn_relu_eval": 69, "bn_relu_eval_pool": 8, "bn_relu_eval_plain": 13,
-                     "grouped_bytes": 32 * 45_485_184}
+# queries, the 13 attention passes (each with its block's bn2 pair, the
+# weight pair and the weight MLP's inner pair, and the position encoder's
+# pair of 3 channels inside it), the eval pairs (14 of the classifier's:
+# its 13 blocks' bn1 and its first TransitionDown's; 16 of the heads'; the
+# pooled last pairs of its 4 strided TransitionDowns and of the 4 heads)
+# and the bytes of the strided TransitionDowns' grouped inputs, 1,048,320
+# a cluster (the attention forms no neighbourhood tensor)
+PT_REQUEST_COUNTS = {"fps": 5, "knn": 9, "pt_attention": 13, "bn_relu_eval": 30, "bn_relu_eval_pool": 8,
+                     "grouped_bytes": 32 * 1_048_320}
 
 
 def profiled_launches(fn) -> dict[str, int]:
@@ -1463,6 +1561,7 @@ def serving_phase(pipe, cpu, kernels: list[dict]) -> dict:
                 "bn_relu_eval_gather": bn_relu_eval_gather.launches}
     point_transformer = pt_request(pipe.device)
     launches["knn"] = point_transformer["counts"]["knn"]
+    launches["pt_attention"] = point_transformer["counts"]["pt_attention"]
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)
         check(k["launches"] > 0 or k["name"] not in launches, f"{k['name']} never launched on the main path")

@@ -43,6 +43,7 @@ ENTRIES = {
     "plpe_bn_relu_eval_max": ("bn_relu", [_PTR] * 6 + [_I64] + [_INT] * 3 + [_F32]),
     "plpe_bn_relu_eval_gather": ("bn_relu", [_PTR] * 9 + [_INT] * 8 + [_F32]),
     "plpe_knn": ("knn", [_PTR] * 3 + [_INT] * 7),
+    "plpe_pt_attention": ("pt_attention", [_PTR] * 30 + [_INT] * 8 + [_F32] * 4),
 }
 KERNELS = tuple(dict.fromkeys(lib for lib, _ in ENTRIES.values()))
 

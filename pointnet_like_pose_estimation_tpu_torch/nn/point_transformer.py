@@ -12,14 +12,17 @@ N)`` neighbours), and a stage's kNN is queried once and shared by all its
 blocks (the published layer queries again in every block, on the same
 points, so the indices are the same).
 
-Every BatchNorm + ReLU pair goes through ``nn/layers.py``
-``bn_relu_pair`` or a ``PointwiseMLP`` (the eval passes of
-``kernels/bn_relu.py`` on the card). The stride-4 TransitionDown groups
-its one-layer MLP's input and takes the max in the pooled eval pass
-(``PointwiseMLP.forward_max``): the per-point route of
-``nn/set_abstraction.py`` wants two layers. The attention counts the
-neighbourhood tensors it forms through ``ops/grouping.py``
-``count_grouped``.
+Where ``attention_reason`` is None (eval mode, no gradient, float32 on
+the card, a shape the kernel's plan takes) the attention and its block's
+``bn2`` pair run as one pass, ``kernels/pt_attention.py``, which forms no
+neighbourhood tensor. Elsewhere (train mode, a gradient, bfloat16, the
+CPU) the attention is composed: every BatchNorm + ReLU pair goes through
+``nn/layers.py`` ``bn_relu_pair`` or a ``PointwiseMLP`` (the eval passes of
+``kernels/bn_relu.py`` on the card), and the neighbourhood tensors it
+forms are counted through ``ops/grouping.py`` ``count_grouped``. The
+stride-4 TransitionDown groups its one-layer MLP's input and takes the max
+in the pooled eval pass (``PointwiseMLP.forward_max``): the per-point route
+of ``nn/set_abstraction.py`` wants two layers.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from pointnet_like_pose_estimation_tpu_torch.kernels.pt_attention import pt_attention, pt_attention_plan
 from pointnet_like_pose_estimation_tpu_torch.nn.layers import BatchNormF32, Linear, PointwiseMLP, bn_relu_pair
 from pointnet_like_pose_estimation_tpu_torch.ops.geometry import index_points
 from pointnet_like_pose_estimation_tpu_torch.ops.grouping import count_grouped, knn_group, query_knn
@@ -44,7 +48,8 @@ class PointTransformerLayer(nn.Module):
       ReLU, Linear C->C/s, BN, ReLU, Linear C/s->C/s; a softmax over j;
     - ``y_i[g C/s + t] = sum_j (v_j + delta_ij)[g C/s + t] w_ij[t]``.
 
-    The softmax and the weighted sum run in float32."""
+    The softmax and the weighted sum run in float32. ``forward`` gives
+    ``relu(bn2(y))``, its block's pair ``bn2`` taken with it."""
 
     def __init__(self, channels: int, share_planes: int = 8):
         super().__init__()
@@ -56,10 +61,17 @@ class PointTransformerLayer(nn.Module):
         self.weight_bn = BatchNormF32(channels)
         self.weight_mlp = PointwiseMLP(channels, [channels // share_planes] * 2, final_activation=False)
 
-    def forward(self, p: torch.Tensor, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    def forward(self, p: torch.Tensor, x: torch.Tensor, idx: torch.Tensor, bn2: nn.Module) -> torch.Tensor:
+        """``relu(bn2(y))``: in one pass (``kernels/pt_attention.py``)
+        where ``attention_reason`` is None, else composed."""
+        q, k, v = self.q(x), self.k(x), self.v(x)
+        if attention_reason(self, x, idx, bn2) is None:
+            return pt_attention(p, q, k, v, idx, self, bn2)
+        return bn_relu_pair(self._composed(p, q, k, v, idx), bn2)
+
+    def _composed(self, p, q, k, v, idx) -> torch.Tensor:
         B, N, K = idx.shape
         s, c = self.share_planes, self.channels // self.share_planes
-        q, k, v = self.q(x), self.k(x), self.v(x)
         delta = self.pos(knn_group(p, None, p, idx))
         k_j, v_j = index_points(k, idx), index_points(v, idx)
         a = k_j - q[:, :, None, :] + delta
@@ -71,6 +83,35 @@ class PointTransformerLayer(nn.Module):
         for t in (delta, k_j, v_j, a, h, w, w_soft, vd, prod):
             count_grouped(t)
         return prod.sum(dim=2).view(B, N, self.channels)
+
+
+def attention_reason(attn: PointTransformerLayer, x: torch.Tensor, idx: torch.Tensor, bn2: nn.Module) -> str | None:
+    """Why the attention of ``attn`` over ``idx`` on its input ``x``, with
+    its block's pair ``bn2``, is composed, or None where it runs as one
+    pass (``kernels/pt_attention.py``): ``"train"`` (``attn`` or ``bn2``
+    in train mode), ``"grad"`` (a gradient wanted of the output: the pass
+    has no backward), ``"dtype"`` (``x`` not float32, or a Linear
+    computing in another dtype: the bfloat16 path), ``"share"`` (channels
+    no multiple of ``share_planes``), ``"plan"`` (a shape the kernel's plan
+    refuses) or ``"device"`` (not a CUDA tensor: the CPU, where the port is
+    held against the plain reference)."""
+    if attn.training or bn2.training:
+        return "train"
+    if torch.is_grad_enabled() and (x.requires_grad or any(t.requires_grad for m in (attn, bn2)
+                                                            for t in m.parameters())):
+        return "grad"
+    if x.dtype != torch.float32 or any(m.compute_dtype is not None for m in attn.modules() if isinstance(m, Linear)):
+        return "dtype"
+    B, N, K = idx.shape
+    if attn.channels % attn.share_planes:
+        return "share"
+    try:
+        pt_attention_plan(B, N, K, attn.channels, attn.share_planes)
+    except ValueError:
+        return "plan"
+    if not x.is_cuda:
+        return "device"
+    return None
 
 
 class PointTransformerBlock(nn.Module):
@@ -86,7 +127,7 @@ class PointTransformerBlock(nn.Module):
         self.bn3 = BatchNormF32(channels)
 
     def forward(self, p: torch.Tensor, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-        y = bn_relu_pair(self.attn(p, self.mlp1(x), idx), self.bn2)
+        y = self.attn(p, self.mlp1(x), idx, self.bn2)
         return torch.relu(self.bn3(self.linear3(y)) + x)
 
 

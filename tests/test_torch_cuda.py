@@ -1384,6 +1384,79 @@ def test_knn_kernel_matches_plain_version(card, N, S, k):
     assert torch.equal(got, knn_reference(pts, queries, k))
 
 
+# (N, K, C) of the attention's layers in a 1024-point forward, one shape a stage
+PT_ATTENTION_SHAPES = [(1024, 8, 32), (256, 16, 64), (64, 16, 128), (16, 16, 256), (4, 4, 512)]
+
+
+@pytest.mark.parametrize("N,K,C", PT_ATTENTION_SHAPES + [(301, 5, 64), (7, 7, 64)])
+@pytest.mark.parametrize("scale", [3.0, 300.0])
+def test_pt_attention_kernel_matches_plain_version(card, N, K, C, scale):
+    """The one-pass attention at each stage's shape of a 32-cluster request,
+    a ragged last tile of queries (301 points, 12 tiles of 25 and one;
+    share planes 4) and a cloud of one tile, on the benchmark's weights, with
+    features of a few units and of hundreds (the request's grow to
+    thousands): on the card its route (``attention_reason`` None), and its
+    distance from the plain version run in float64 no more than 10 times
+    the plain float32 version's (both sum in float32, in other orders; the
+    softmax turns a logit's last bits into the output's, in both alike)
+    and 1e-6 of the output's scale."""
+    import copy
+
+    from pointnet_like_pose_estimation_tpu_torch.kernels.pt_attention import pt_attention, pt_attention_reference
+    from pointnet_like_pose_estimation_tpu_torch.nn.point_transformer import (
+        PointTransformerBlock,
+        attention_reason,
+    )
+    from pointnet_like_pose_estimation_tpu_torch.ops.grouping import query_knn
+
+    clusters_pt, _ = _pt_bench()
+    share = 4 if N == 301 else 8
+    block = PointTransformerBlock(C, share).eval()
+    block.load_state_dict(clusters_pt.model_state(PointTransformerBlock(C, share), 2**31 + N + C, "cpu"))
+    block = block.to(card)
+    attn, bn2 = block.attn, block.bn2
+    B = 32
+    p = _clouds(B, N, N + K).to(card)
+    x = torch.relu(scale * torch.randn(B, N, C, generator=torch.Generator().manual_seed(C))).to(card)
+    with torch.inference_mode():
+        idx = query_knn(K, p, p)
+        assert attention_reason(attn, x, idx, bn2) is None
+        q, k, v = attn.q(x), attn.k(x), attn.v(x)
+        got = pt_attention(p, q, k, v, idx, attn, bn2)
+        want = pt_attention_reference(p, q, k, v, idx, attn, bn2)
+        exact = pt_attention_reference(p.double(), q.double(), k.double(), v.double(), idx,
+                                       copy.deepcopy(attn).double(), copy.deepcopy(bn2).double())
+    torch.cuda.synchronize()
+    out_scale = float(exact.abs().max())
+    err, plain = float((got.double() - exact).abs().max()), float((want.double() - exact).abs().max())
+    assert bool(torch.isfinite(got).all()) and err <= 10 * plain + 1e-6 * out_scale, (err, plain, out_scale)
+
+
+def test_the_block_takes_the_one_pass_attention_on_the_card(card):
+    """An eval-mode block on the card under ``inference_mode`` launches the
+    pass once and forms no neighbourhood tensor; with a gradient wanted it
+    takes the composed route, and both give the same output within float32
+    reordering."""
+    from pointnet_like_pose_estimation_tpu_torch.kernels.pt_attention import pt_attention
+    from pointnet_like_pose_estimation_tpu_torch.nn.point_transformer import PointTransformerBlock
+    from pointnet_like_pose_estimation_tpu_torch.ops.grouping import count_grouped, query_knn
+
+    clusters_pt, _ = _pt_bench()
+    block = PointTransformerBlock(64).eval()
+    block.load_state_dict(clusters_pt.model_state(PointTransformerBlock(64), 11, "cpu"))
+    block = block.to(card)
+    p = _clouds(4, 256, 3).to(card)
+    x = torch.rand(4, 256, 64, device=card)
+    idx = query_knn(16, p, p)
+    launches, grouped = pt_attention.launches, count_grouped.bytes
+    with torch.inference_mode():
+        fused = block(p, x, idx)
+    assert (pt_attention.launches - launches, count_grouped.bytes - grouped) == (1, 0)
+    composed = block(p, x, idx).detach()
+    assert pt_attention.launches - launches == 1 and count_grouped.bytes > grouped
+    assert float((fused - composed).abs().max()) <= 1e-5 * float(composed.abs().max())
+
+
 def _pt_bench():
     import sys
 
@@ -1429,10 +1502,12 @@ def test_pt_request_replay_equals_eager_and_counts_its_work(card):
     replay against its function called eagerly on the card (classes exact,
     floats within 1e-5 of their scale; expected bit for bit), and the
     counters its capture recorded at K = 4: the resampling FPS and four
-    strided ones, nine kNN queries, the eval pairs (53 of the classifier's,
-    its 13 position-encoder pairs of 3 channels on the plain path, 16 of
-    the PointNet heads'; the pooled last pairs of its 4 TransitionDowns and
-    the 4 heads) and the neighbourhood tensors, 45,485,184 bytes a cluster."""
+    strided ones, nine kNN queries, 13 one-pass attentions (each with its
+    block's bn2 pair and its own pairs), the eval pairs (14 of the
+    classifier's, 16 of the PointNet heads'; the pooled last pairs of its 4
+    TransitionDowns and the 4 heads) and the strided TransitionDowns'
+    grouped inputs, 1,048,320 bytes a cluster: the attention forms no
+    neighbourhood tensor."""
     from pointnet_like_pose_estimation_tpu_torch.ops.grouping import count_grouped
     from pointnet_like_pose_estimation_tpu_torch.pipeline import GraspPipeline, PipelineConfig
 
@@ -1443,8 +1518,8 @@ def test_pt_request_replay_equals_eager_and_counts_its_work(card):
     g0 = count_grouped.bytes
     replay = pipe.programs(key, fn, inputs)
     torch.cuda.synchronize()
-    assert pipe.programs.counts(key) == {"fps": 5, "knn": 9, "bn_relu_eval": 69, "bn_relu_eval_pool": 8,
-                                         "bn_relu_eval_plain": 13, "grouped_bytes": 4 * 45_485_184}
+    assert pipe.programs.counts(key) == {"fps": 5, "knn": 9, "pt_attention": 13, "bn_relu_eval": 30,
+                                         "bn_relu_eval_pool": 8, "grouped_bytes": 4 * 1_048_320}
     assert count_grouped.bytes - g0 == 2 * pipe.programs.counts(key)["grouped_bytes"]
     with torch.inference_mode():
         eager = fn(*(x.to(card) for x in inputs))

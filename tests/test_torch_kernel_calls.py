@@ -83,5 +83,5 @@ def _defined_entries() -> dict:
 
 def test_every_entry_is_declared_as_its_source_defines_it():
     defined = _defined_entries()
-    assert len(defined) == 10 and _build.ENTRIES == defined
-    assert _build.KERNELS == ("fps", "ball_group", "fused_sa", "bn_relu", "knn")
+    assert len(defined) == 11 and _build.ENTRIES == defined
+    assert _build.KERNELS == ("fps", "ball_group", "fused_sa", "bn_relu", "knn", "pt_attention")

@@ -1,9 +1,10 @@
 """What the port's kernel wrappers decide in Python before a launch, on the
 CPU: the fused-SA launch plan (rows per chunk, centroids per block, shared
 bytes), the FPS plan (threads, points per thread; register, shared, cluster
-or global path) and the FPS calls the registry's models make, and the
-three-product TF32 arithmetic that the fused-SA kernel runs on the tensor
-cores, spelled in plain PyTorch beside the wrapper."""
+or global path) and the FPS calls the registry's models make, the
+attention pass's constants and the attention calls of Point Transformer,
+and the three-product TF32 arithmetic that the fused-SA kernel runs on the
+tensor cores, spelled in plain PyTorch beside the wrapper."""
 
 import re
 from pathlib import Path
@@ -14,6 +15,7 @@ import torch
 
 from pointnet_like_pose_estimation_tpu_torch.kernels import fps as fps_module
 from pointnet_like_pose_estimation_tpu_torch.kernels import fused_sa
+from pointnet_like_pose_estimation_tpu_torch.kernels import pt_attention as attention_kernel
 from pointnet_like_pose_estimation_tpu_torch.kernels.fps import (
     CLUSTER_BLOCKS,
     CLUSTER_PATH,
@@ -35,6 +37,7 @@ from pointnet_like_pose_estimation_tpu_torch.kernels.fused_sa import (
     tf32_split,
 )
 from pointnet_like_pose_estimation_tpu_torch.models import MODEL_REGISTRY, build_model, get_model_spec
+from pointnet_like_pose_estimation_tpu_torch.nn import point_transformer as pt_layers
 from pointnet_like_pose_estimation_tpu_torch.train.config import TrainConfig
 
 CSRC = Path(fused_sa.__file__).resolve().parent / "csrc"
@@ -178,6 +181,43 @@ def test_python_mirrors_the_kernel_constants():
     assert "kMaxSliceBytes = kMaxSharedBytes - 2 * kMaxClusterBlocks * (2 + kMaxChannels) * 4;" in fps_cu
     assert MAX_SLICE_POINTS == (227 * 1024 - 1024 - inbox) // 4
     assert 2 <= CLUSTER_BLOCKS <= _constant(fps_cu, "kMaxClusterBlocks")
+
+
+def test_pt_attention_mirrors_the_kernel_constants():
+    """The attention pass's plan and kernel compute the tile and its shared
+    memory by one rule; the constants it uses are spelled in both places."""
+    cu = (CSRC / "pt_attention.cu").read_text()
+    for name, value in [("kThreads", "THREADS"), ("kTileElements", "TILE_ELEMENTS"), ("kMaxC", "MAX_C"),
+                        ("kMaxPlanes", "MAX_PLANES"), ("kMaxK", "MAX_K"), ("kPad", "PAD"),
+                        ("kPosFloats", "POS_FLOATS")]:
+        assert _constant(cu, name) == getattr(attention_kernel, value), name
+    assert "constexpr int kMaxSharedBytes = 227 * 1024;" in cu and attention_kernel.MAX_SHARED_BYTES == 227 * 1024
+
+
+@pytest.mark.parametrize("N", [1024, 2048])
+def test_point_transformer_attention_calls_fit_the_plan(N, monkeypatch):
+    """A forward of ``point_transformer_cls`` at full width on the CPU, with
+    ``attention_reason`` recording each attention call: 13 calls at the
+    request's 1024 points, one layer at the first stage, 2, 3, 5 and 2
+    after, and the kernel's plan takes every one, at one cloud and at
+    32; at 2048 points too."""
+    calls = []
+    reason = pt_layers.attention_reason
+
+    def recording(attn, x, idx, bn2):
+        calls.append((*idx.shape[1:], attn.channels))
+        return reason(attn, x, idx, bn2)
+
+    monkeypatch.setattr(pt_layers, "attention_reason", recording)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((1, N, 3)).astype(np.float32))
+    with torch.no_grad():
+        build_model("point_transformer_cls").eval()(x)
+    stages = [(N, 8, 32)] + [(N // 4**s, min(16, N // 4**s), 32 * 2**s) for s in range(1, 5)]
+    assert calls == [shape for shape, n in zip(stages, (1, 2, 3, 5, 2)) for _ in range(n)]
+    for n, k, c in calls:
+        for B in (1, 32):
+            plan = attention_kernel.pt_attention_plan(B, n, k, c, 8)
+            assert plan.shared_bytes <= attention_kernel.MAX_SHARED_BYTES and plan.tile * k * c <= 8192
 
 
 @pytest.mark.parametrize(

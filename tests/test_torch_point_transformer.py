@@ -1,10 +1,13 @@
 """Point Transformer in the port on the CPU: the kNN query's plain version
-against a brute force and its launch plan, the classifier and the grasp
+against a brute force and its launch plan, the one-pass attention's plain
+version against the composed layer, its launch plan and the reasons that
+keep the composed route, the classifier and the grasp
 request with it against the benchmark's plain reference
 (``bench_port/reference/point_transformer.py``) on seeded random weights,
 its grouped bytes, the yardstick's FLOP count against
 ``torch.utils.flop_counter``, and the cell's benchmark files found by name
-and importing no JAX. The kernel itself runs in ``tests/test_torch_cuda.py``."""
+and importing no JAX. The kernels themselves run in
+``tests/test_torch_cuda.py``."""
 
 import ast
 import json
@@ -16,8 +19,17 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
+from pointnet_like_pose_estimation_tpu_torch.kernels import pt_attention as attention_kernel
 from pointnet_like_pose_estimation_tpu_torch.kernels.knn import MAX_K, MAX_POINTS, knn, knn_plan
+from pointnet_like_pose_estimation_tpu_torch.kernels.pt_attention import pt_attention, pt_attention_plan
 from pointnet_like_pose_estimation_tpu_torch.models import build_model, get_model_spec
+from pointnet_like_pose_estimation_tpu_torch.nn import point_transformer as pt_layers
+from pointnet_like_pose_estimation_tpu_torch.nn.layers import set_compute_dtype
+from pointnet_like_pose_estimation_tpu_torch.nn.point_transformer import (
+    PointTransformerBlock,
+    PointTransformerLayer,
+    attention_reason,
+)
 from pointnet_like_pose_estimation_tpu_torch.ops.grouping import count_grouped, knn_group, query_knn
 from pointnet_like_pose_estimation_tpu_torch.pipeline import GraspPipeline, PipelineConfig
 from pointnet_like_pose_estimation_tpu_torch.pipeline.infer import MODEL_KEYS
@@ -104,6 +116,124 @@ def test_knn_group_puts_the_relative_coordinates_first_and_counts_them():
     b, s, j = 1, 3, 5
     n = int(idx[b, s, j])
     assert torch.equal(g[b, s, j], torch.cat([p[b, n] - c[b, s], f[b, n]]))
+
+
+# (N, nsample, C) of the attention's layers in a 1024-point forward: 1, 2, 3, 5 and 2 of them a stage
+PT_ATTENTION_STAGES = list(zip((1024, 256, 64, 16, 4), PT.NSAMPLE, PT.PLANES))
+
+
+def _block(C: int, seed: int) -> PointTransformerBlock:
+    """A block in eval mode on the benchmark's weights."""
+    block = PointTransformerBlock(C).eval()
+    block.load_state_dict(clusters_pt.model_state(PointTransformerBlock(C), seed, "cpu"), strict=True)
+    return block
+
+
+@pytest.mark.parametrize("N,nsample,C", PT_ATTENTION_STAGES)
+def test_pt_attention_plain_version_matches_the_composed_layer(N, nsample, C):
+    """At each stage's shape of the request (stage 5 takes K = min(16, 4)),
+    on the benchmark's weights: the one-pass attention's plain version
+    against the layer's composed eval forward and its block's bn2 pair,
+    the route the CPU takes. The two sum the same float32 terms in other
+    orders (the eval passes' rounding against PyTorch's CPU BatchNorm,
+    one softmax against another), so they part by float32 reordering:
+    some 6e-7 of the largest output at these inputs; 1e-5 of it leaves
+    room for the softmax, which passes a last-bit difference of a logit
+    on to its weights."""
+    block = _block(C, 2**31 + C)
+    gen = torch.Generator().manual_seed(C)
+    p = _cloud(2, N, C)
+    x = torch.relu(3 * torch.randn(2, N, C, generator=gen))
+    idx = query_knn(nsample, p, p)
+    assert idx.shape == (2, N, min(nsample, N))
+    attn = block.attn
+    with torch.no_grad():
+        assert attention_reason(attn, x, idx, block.bn2) == "device"
+        want = attn(p, x, idx, block.bn2)
+        got = pt_attention(p, attn.q(x), attn.k(x), attn.v(x), idx, attn, block.bn2)
+    assert got.shape == (2, N, C)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_attention_reason_names_what_keeps_the_composed_route():
+    block = _block(32, 7)
+    attn, bn2 = block.attn, block.bn2
+    p = _cloud(1, 20, 0)
+    x = torch.rand(1, 20, 32)
+    idx = query_knn(8, p, p)
+    assert attention_reason(attn, x, idx, bn2) == "grad"           # the parameters want gradients
+    with torch.no_grad():
+        assert attention_reason(attn, x, idx, bn2) == "device"     # eval, float32, on the CPU
+        assert attention_reason(attn, x, query_knn(20, p, p), bn2) == "plan"     # K above 16
+        block.train()
+        assert attention_reason(attn, x, idx, bn2) == "train"
+        block.eval()
+        assert attention_reason(attn, x.bfloat16(), idx, bn2) == "dtype"
+        set_compute_dtype(block, "bfloat16")
+        assert attention_reason(attn, x, idx, bn2) == "dtype"
+        set_compute_dtype(block, "float32")
+        odd = PointTransformerLayer(36).eval()
+        assert attention_reason(odd, torch.rand(1, 20, 36), idx, bn2) == "share"
+    with torch.enable_grad():
+        for t in block.parameters():
+            t.requires_grad_(False)
+        assert attention_reason(attn, x, idx, bn2) == "device"
+        assert attention_reason(attn, x.requires_grad_(), idx, bn2) == "grad"
+
+
+def test_pt_attention_plan_and_refusals():
+    """A tile of queries a block whose neighbour rows times C fill 8192
+    elements: 32 at the first stage (K = 8, C = 32), 2 at the fourth (K =
+    16, C = 256), all four at the fifth (N = 4); the shared bytes its
+    layout's, within a block's 227 KB. Shapes the kernel does not take
+    raise."""
+    want = {(1024, 8, 32): (32, 59264), (256, 16, 64): (8, 52512), (64, 16, 128): (4, 55520),
+            (16, 16, 256): (2, 81888), (4, 4, 512): (4, 193184)}
+    for N, nsample, C in PT_ATTENTION_STAGES:
+        K = min(nsample, N)
+        plan = pt_attention_plan(32, N, K, C, 8)
+        assert (plan.tile, plan.shared_bytes) == want[N, K, C] and plan.threads == attention_kernel.THREADS
+        assert plan.tile * K * C <= attention_kernel.TILE_ELEMENTS
+        assert plan.shared_bytes <= attention_kernel.MAX_SHARED_BYTES
+    for B, N, K, C, s in [(32, 16, 17, 256, 8), (32, 4, 5, 512, 8), (32, 0, 1, 32, 8), (32, 16, 0, 32, 8),
+                          (32, 16, 16, 1024, 8), (32, 16, 16, 48, 8), (32, 16, 16, 96, 8), (32, 16, 16, 64, 0),
+                          (32, 16, 16, 64, 32), (0, 16, 16, 64, 8), (65536, 16, 16, 64, 8),
+                          (32, 2**31, 16, 64, 8), (32, 1000, 8, 4, 1)]:
+        with pytest.raises(ValueError, match="pt_attention: no plan"):
+            pt_attention_plan(B, N, K, C, s)
+
+
+def test_pt_attention_refuses_mismatched_inputs():
+    block = _block(32, 3)
+    p = _cloud(1, 10, 0)
+    x = torch.rand(1, 10, 32)
+    idx = query_knn(4, p, p)
+    with pytest.raises(ValueError, match="pt_attention: want"):
+        pt_attention(p, x, x, x[:, :5], idx, block.attn, block.bn2)
+
+
+def test_the_one_pass_route_forms_only_the_transition_downs_groups(monkeypatch):
+    """The classifier with every attention on the one-pass route (its plain
+    version on the CPU): the grouped bytes are the four strided
+    TransitionDowns' inputs alone, 1,048,320 a 1024-point cloud, and the
+    outputs part from the composed route's by float32 reordering (some
+    7e-7 of the logits' scale of a thousand or two; held to 1e-5)."""
+    state = _pt_state(2**31 + 77)
+    model = build_model("point_transformer_cls").eval()
+    model.load_state_dict(state, strict=True)
+    x = _cloud(2, 1024, 4)
+    with torch.no_grad():
+        composed = model(x)
+        monkeypatch.setattr(pt_layers, "attention_reason", lambda *args: None)
+        before = count_grouped.bytes
+        fused = model(x)
+    assert count_grouped.bytes - before == 2 * 1_048_320
+    tds = sum(m * min(nsample, n) * (3 + cin) for (n, m, cin, c, stride, k), nsample
+              in zip(bounds_pt.stages(1024), PT.NSAMPLE) if stride > 1)
+    assert 4 * tds == 1_048_320
+    scale = float(composed[0].abs().max())
+    assert float((fused[0] - composed[0]).abs().max()) <= 1e-5 * scale
+    assert float((fused[1] - composed[1]).abs().max()) <= 1e-5 * float(composed[1].abs().max())
 
 
 def _pt_state(seed):

@@ -152,6 +152,29 @@ def test_registry_has_the_jax_package_names_and_kinds():
         build_model("no_such_model")
 
 
+@pytest.mark.parametrize("dtype,reason", [("float32", "device"), ("bfloat16", "dtype")])
+def test_the_port_s_own_classifier_routes_its_attention(dtype, reason, monkeypatch):
+    """``point_transformer_cls``, which the JAX package has not: its 13
+    attention layers say why they stay composed on the CPU (the one-pass
+    kernel, the counter ``pt_attention``, is the card's), in either dtype;
+    its kNN and attention counters are registered with the others."""
+    from pointnet_like_pose_estimation_tpu_torch.nn import point_transformer
+    from pointnet_like_pose_estimation_tpu_torch.utils import counters
+
+    assert {"knn", "pt_attention", "fps", "ball_query"} <= set(counters.read())
+    reasons = []
+    saved = point_transformer.attention_reason
+    monkeypatch.setattr(point_transformer, "attention_reason",
+                        lambda *args: reasons.append(saved(*args)) or reasons[-1])
+    model = build_model("point_transformer_cls", NUM_CLASSES, dtype).eval()
+    x = np.random.default_rng(2).standard_normal((B, 256, 3)).astype(np.float32)    # 256, 64, 16, 4, 1 a stage
+    before = counters.read()["pt_attention"]
+    with torch.no_grad():
+        log_probs, _, _ = model(torch.from_numpy(x / np.linalg.norm(x, axis=-1).max()))
+    assert reasons == [reason] * 13 and counters.read()["pt_attention"] == before
+    assert log_probs.shape == (B, NUM_CLASSES) and bool(torch.isfinite(log_probs).all())
+
+
 # float32 cases keep the bare model name as their id
 @pytest.mark.parametrize("name,dtype", [pytest.param(n, d, id=n if d == "float32" else f"{n}-{d}")
                                         for d in ("float32", "bfloat16") for n in sorted(JAX_REGISTRY)])
